@@ -1,0 +1,117 @@
+"""Build the CUDA kernels in ``csrc/`` with nvcc and load them with ctypes.
+
+The sources have a plain C interface (no PyTorch headers), so one nvcc call
+compiles them in seconds.  The shared library lands in ``_build/<digest>/``
+inside this package (listed in ``.gitignore``), keyed by a hash of the
+sources and flags: the first use after a change rebuilds, later uses load
+the cached library.  A failed build raises; nothing falls back.
+
+Flags: ``sm_90a`` (Hopper), ``-fmad=false`` so nvcc never contracts an
+``a * b + c`` into one rounding (the plain engine rounds twice), and never
+``--use_fast_math`` (the renormalising divide must be IEEE division and the
+NaN compares must stay ordered).  ``-Xptxas -v`` records registers, shared
+memory and spills of every kernel in ``nvcc.log`` beside the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+LIB_NAME = "libctc_kernels.so"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+@dataclass
+class BuildResult:
+    path: str  # the shared library
+    seconds: float  # nvcc wall time; 0.0 when the cached library was used
+    log: str  # nvcc's output, ptxas register/spill lines included
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs, headers
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> BuildResult:
+    """Compile ``csrc/*.cu`` into one shared library, unless already built."""
+    srcs, headers = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + headers:
+        digest.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            digest.update(f.read())
+    out_dir = os.path.join(BUILD_ROOT, digest.hexdigest()[:16])
+    out = os.path.join(out_dir, LIB_NAME)
+    log_path = os.path.join(out_dir, "nvcc.log")
+    if os.path.exists(out):
+        with open(log_path) as f:
+            return BuildResult(out, 0.0, f.read())
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+        )
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, out)
+    return BuildResult(out, seconds, log)
+
+
+def load_library():
+    """The kernels' ctypes library, built on first use (raises on failure)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        lib = ctypes.CDLL(build().path)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ctc_beam_ids_launch.restype = i
+        lib.ctc_beam_ids_launch.argtypes = [
+            p, p, ctypes.c_float, i, i, i, i, i, p, p, p, p,
+        ]
+        lib.ctc_traceback_launch.restype = i
+        lib.ctc_traceback_launch.argtypes = [p, p, i, i, i, i, p, p, p, p]
+        lib.ctc_cuda_error_string.restype = ctypes.c_char_p
+        lib.ctc_cuda_error_string.argtypes = [i]
+        _LIB = lib
+        return _LIB

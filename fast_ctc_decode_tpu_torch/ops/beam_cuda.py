@@ -1,0 +1,158 @@
+"""Hand-written CUDA kernels of the batched 1D beam path, with their plain versions.
+
+Two kernels, built from ``csrc/`` by ``ops/_build.py`` and launched through
+ctypes on PyTorch's current stream:
+
+ - ``beam_ids_kernel`` (``csrc/beam_kernel.cu``) replaces
+   ``fast_ctc_decode_tpu/ops/beam_pallas.py::_beam_kernel2``: the fused
+   T-loop beam, one thread per read.  Plain version:
+   ``beam_fast.beam_search_ids_batch``.
+ - ``traceback_kernel`` (``csrc/traceback_kernel.cu``) replaces
+   ``beam_pallas.py::_traceback_kernel`` plus the key sort of
+   ``beam_fast._sort_unpack_keys``: a direct walk of the id log, one thread
+   per read.  Plain version: ``beam_fast._traceback_scan_batch``.
+
+Each wrapper checks its inputs and its kernel's bounds and raises beyond
+them, whatever the device.  A tensor on the CPU then goes to the plain
+version; a CUDA tensor launches the kernel or raises, with no fallback.
+``launches`` counts kernel launches (the plain versions count nothing).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import beam_fast
+
+#: kernel launches per wrapper since the last reset (plain integers)
+launches = {"beam": 0, "traceback": 0}
+
+MAX_BEAM = 16  # per-thread beam arrays of the widest kernel instance
+MAX_A1 = 8  # blank + at most 7 labels
+
+beam_ids_plain = beam_fast.beam_search_ids_batch
+
+
+def traceback_plain(fin, ids_log, *, T, K, A):
+    return beam_fast._traceback_scan_batch(fin, ids_log, T, K, A)
+
+
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
+
+
+def _check(x, name, dtype, shape, device):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+
+
+def _bounds(T, K, A):
+    if not 1 <= K <= MAX_BEAM:
+        raise ValueError(f"beam_size must be in [1, {MAX_BEAM}] for the CUDA kernel, got {K}")
+    if not 2 <= A + 1 <= MAX_A1:
+        raise ValueError(f"A+1 must be in [2, {MAX_A1}] for the CUDA kernel, got {A + 1}")
+    if T * K * A > beam_fast._I32_MAX:
+        raise ValueError("T * beam_size * A overflows the int32 node ids")
+
+
+def _raise_for(rc, what):
+    if rc != 0:
+        msg = _build.load_library().ctc_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def beam_ids_kernel(probs, lengths, thr, *, beam_size, collapse_repeats=True):
+    """Forward beam: ``(ids_log [T, K, B], fin [B], err [B])``, all int32.
+
+    probs: [B, T, A+1] f32 contiguous; lengths: [B] i32 on the same device.
+    """
+    if not isinstance(probs, torch.Tensor) or probs.dim() != 3:
+        raise ValueError("probs must be a [B, T, A+1] torch.Tensor")
+    B, T, A1 = probs.shape
+    K = int(beam_size)
+    _check(probs, "probs", torch.float32, (B, T, A1), probs.device)
+    _check(lengths, "lengths", torch.int32, (B,), probs.device)
+    _bounds(T, K, A1 - 1)
+    if probs.device.type == "cpu":
+        return beam_ids_plain(
+            probs, lengths, thr, beam_size=K, collapse_repeats=collapse_repeats
+        )
+    dev = probs.device
+    ids_log = torch.empty((T, K, B), dtype=torch.int32, device=dev)
+    fin = torch.empty((B,), dtype=torch.int32, device=dev)
+    err = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return ids_log, fin, err
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.ctc_beam_ids_launch(
+            probs.data_ptr(), lengths.data_ptr(), float(thr),
+            B, T, A1 - 1, K, int(bool(collapse_repeats)),
+            ids_log.data_ptr(), fin.data_ptr(), err.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_for(rc, "beam kernel")
+    launches["beam"] += 1
+    return ids_log, fin, err
+
+
+def traceback_kernel(fin, ids_log, *, T, K, A):
+    """Walk the [T, K, B] id log: ``(labels_rev [B, T], times_rev [B, T],
+    count [B])``, all int32, emits leaf-first and -1 padded."""
+    if not isinstance(ids_log, torch.Tensor) or ids_log.dim() != 3:
+        raise ValueError("ids_log must be a [T, K, B] torch.Tensor")
+    B = ids_log.shape[2]
+    _check(ids_log, "ids_log", torch.int32, (T, K, B), ids_log.device)
+    _check(fin, "fin", torch.int32, (B,), ids_log.device)
+    _bounds(T, K, A)
+    if ids_log.device.type == "cpu":
+        return traceback_plain(fin, ids_log, T=T, K=K, A=A)
+    dev = ids_log.device
+    labels_rev = torch.empty((B, T), dtype=torch.int32, device=dev)
+    times_rev = torch.empty((B, T), dtype=torch.int32, device=dev)
+    count = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return labels_rev, times_rev, count
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.ctc_traceback_launch(
+            fin.data_ptr(), ids_log.data_ptr(), B, T, K, A,
+            labels_rev.data_ptr(), times_rev.data_ptr(), count.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_for(rc, "traceback kernel")
+    launches["traceback"] += 1
+    return labels_rev, times_rev, count
+
+
+def beam_search_kernel_batch(
+    probs, lengths, thr, *, beam_size, collapse_repeats=True
+):
+    """Both kernels in turn; the output dict of
+    ``beam_fast.beam_search_fast_batch`` (labels_rev, times_rev, count, err)."""
+    ids_log, fin, err = beam_ids_kernel(
+        probs, lengths, thr, beam_size=beam_size,
+        collapse_repeats=collapse_repeats,
+    )
+    T, A = probs.shape[1], probs.shape[2] - 1
+    labels_rev, times_rev, count = traceback_kernel(
+        fin, ids_log, T=T, K=int(beam_size), A=A
+    )
+    return {
+        "labels_rev": labels_rev,
+        "times_rev": times_rev,
+        "count": count,
+        "err": err,
+    }
