@@ -7,10 +7,14 @@ Run from the repository root, with no arguments:
 
 Phases, each of which raises on failure (exit code non-zero):
   1. builds the CUDA kernels from ``fast_ctc_decode_tpu_torch/csrc`` with nvcc
-     (sm_90a) and prints the card, the versions, the build time and ptxas's
-     register/spill lines;
-  2. holds each kernel against its plain PyTorch version on the card, bit
-     for bit, on the shapes of the CPU tests and at B=1024, T=1000;
+     (sm_90a, one compiler per source, all at once) and prints the card, the
+     versions, the build time and ptxas's register/spill lines;
+  2. holds each 1D kernel against its plain PyTorch version on the card, bit
+     for bit, on the shapes of the CPU tests (a +-inf batch included) and at
+     B=1024, T=1000;
+  2b. the same for the CRF beam kernel and the exact tree kernel (1D and
+     CRF): NaN, empty beams, zero lengths, overflow through a small
+     ``max_nodes``, -0.0 entries, beams 8/16, S = 9, and at full width;
   3. drives the main path, ``BatchBeamDecoder("NACGT", T=1000, beam_size=5,
      beam_cut_threshold=0.1, device="cuda")``, on B=32768 reads made from a
      seed, with every status OK, 8 sampled reads equal to tests/oracle.py,
@@ -18,7 +22,19 @@ Phases, each of which raises on failure (exit code non-zero):
   4. resumes ``decode_many`` from a checkpoint over ~2,000 mixed-length
      reads and checks the result against an uninterrupted run;
   5. times both kernels, ``decode_arrays``, ``decode`` and the plain engine
-     at B=32768, T=1000 (CUDA-synchronised medians of 5 runs).
+     at B=32768, T=1000 (CUDA-synchronised medians of 5 runs);
+  6. drives the paths of the single-read API and the CRF family at full
+     width: ``BatchBeamDecoder(engine="exact")`` (T=1000, B=1024),
+     ``BatchCrfBeamDecoder`` with the CUDA engine (T=400, S=64, B=1024) and
+     the exact engine (B=256), ``BatchViterbiDecoder`` (T=1000, B=8192):
+     statuses OK, the kernels' launch counters grown, 8 sampled reads equal
+     to tests/oracle.py (sequence and path for the exact engines, sequence
+     for the CRF CUDA engine), viterbi equal to its CPU run (phred ints
+     within 1); ``api.beam_search`` / ``api.crf_beam_search`` on the card
+     equal to the batch results; ``decode_many_crf`` resumed from a
+     checkpoint equal to an uninterrupted run;
+  7. times the new kernels against their plain versions (CUDA events) and
+     the new decoders' ``decode_arrays`` / ``decode`` (wall), medians of 5.
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside
 the repository, it exits non-zero and prints no result.
@@ -36,6 +52,9 @@ import numpy as np
 
 ALPHABET = "NACGT"
 B_MAIN, T_MAIN, BEAM, THR = 32768, 1000, 5, 0.1
+B_EXACT = 1024  # exact 1D at T_MAIN
+T_CRF, S_CRF, B_CRF, B_CRF_EXACT = 400, 64, 1024, 256
+B_VITERBI = 8192  # viterbi at T_MAIN
 REPEATS = 5
 FIELDS = ("labels_rev", "times_rev", "count", "err")
 
@@ -50,6 +69,17 @@ def make_reads(B, T, A1, seed):
     probs = rng.rand(B, T, A1).astype(np.float32)
     probs /= np.linalg.norm(probs, ord=2, axis=-1, keepdims=True)
     return probs
+
+
+def make_crf_reads(B, T, S, A1, seed):
+    """CRF posteriors [B, T, S, A+1] (L2-normalised rows, as make_reads) and
+    init states [B, S] (normalised to sum 1)."""
+    rng = np.random.RandomState(seed)
+    probs = rng.rand(B, T, S, A1).astype(np.float32)
+    probs /= np.linalg.norm(probs, ord=2, axis=-1, keepdims=True)
+    init = rng.rand(B, S).astype(np.float32)
+    init /= init.sum(axis=1, keepdims=True)
+    return probs, init
 
 
 def max_abs_diff(a, b):
@@ -103,12 +133,94 @@ def parity_cases():
     ]
     for K in (8, 12, 16):
         cases.append((f"beam{K}", make_reads(3, 30, 5, 5), [30] * 3, 0.0, K, True))
+    inf_probs = make_reads(4, 24, 5, 8)
+    inf_probs[0, 3, 2] = np.inf
+    inf_probs[1, 5, 0] = np.inf
+    inf_probs[2, 2, 1] = -np.inf
+    inf_probs[3, 7, 4] = np.nan
+    cases.append(("pm_inf_nan", inf_probs, [24] * 4, 0.1, 5, True))
     rng = np.random.RandomState(11)
     cases.append(
         ("B1024_T1000", make_reads(1024, 1000, 5, 7),
          list(rng.randint(0, 1001, size=1024)), THR, BEAM, True)
     )
     return cases
+
+
+def exact_cases():
+    """(name, probs, lengths, thr, beam_size, collapse, max_nodes) for the
+    exact 1D kernel: the CPU tests' kinds of input and the full width."""
+    ties = (np.random.RandomState(3).rand(4, 40, 5) > 0.5).astype(np.float32) * 0.9 + 0.05
+    nan_probs = make_reads(3, 16, 5, 5)
+    nan_probs[0, 4, 2] = np.nan
+    nan_probs[1, 0, 0] = np.nan
+    inf_probs = make_reads(3, 20, 5, 8)
+    inf_probs[0, 3, 2] = np.inf
+    inf_probs[1, 6, 0] = -np.inf
+    cases = [
+        ("ragged", make_reads(4, 40, 5, 1), [40, 23, 7, 40], 0.1, 5, True, None),
+        ("collapse_off_thr0_A1=4", make_reads(2, 30, 4, 3), [30, 30], 0.0, 3, False, None),
+        ("ties", ties, [40] * 4, 0.0, 5, True, None),
+        ("uniform_prune", np.full((4, 40, 5), 0.05, np.float32), [40] * 4, 0.1, 5, True, None),
+        ("nan", nan_probs, [16] * 3, 0.0, 5, True, None),
+        ("pm_inf", inf_probs, [20] * 3, 0.0, 5, True, None),
+        ("overflow_N8", make_reads(2, 40, 5, 9), [40, 40], 0.0, 5, True, 8),
+        ("overflow_N37", make_reads(3, 30, 5, 10), [30, 12, 30], 0.1, 5, False, 37),
+        ("zero_lengths", make_reads(4, 16, 5, 6), [0, 16, 0, 5], 0.1, 5, True, None),
+        ("beam8", make_reads(3, 30, 5, 5), [30] * 3, 0.0, 8, True, None),
+        ("beam16", make_reads(3, 30, 5, 5), [30] * 3, 0.0, 16, True, None),
+        ("A1=8", make_reads(3, 30, 8, 12), [30, 17, 30], 0.05, 5, True, None),
+    ]
+    rng = np.random.RandomState(13)
+    cases.append(
+        (f"B{B_EXACT}_T{T_MAIN}", make_reads(B_EXACT, T_MAIN, 5, 14),
+         list(rng.randint(0, T_MAIN + 1, size=B_EXACT)), THR, BEAM, True, None)
+    )
+    return cases
+
+
+def crf_cases():
+    """(name, probs, init, lengths, thr, beam_size, max_nodes) for the CRF
+    kernels (the CRF beam kernel ignores max_nodes)."""
+    def crf(B, T, S, seed, A1=5, Si=None):
+        p, init = make_crf_reads(B, T, S, A1, seed)
+        if Si is not None:
+            init = np.random.RandomState(seed).rand(B, Si).astype(np.float32)
+        return p, init
+
+    negz, negz_init = crf(3, 30, 16, 22)
+    negz[np.random.RandomState(23).rand(*negz.shape) < 0.2] = -0.0
+    negz_init[:, 1] = -0.0
+    nan_p, nan_init = crf(3, 20, 8, 24)
+    nan_p[1, 5, :, 2] = np.nan
+    nan_p[2] = 0.01  # all under the cut
+    ties = (np.random.RandomState(25).rand(3, 30, 9, 4) > 0.5).astype(np.float32) * 0.9 + 0.05
+    cases = [
+        ("ragged_S8", *crf(4, 40, 8, 20), [40, 23, 7, 40], 0.1, 5, None),
+        ("S9_A1=4", *crf(3, 30, 9, 21, A1=4), [30] * 3, 0.0, 5, None),
+        ("S16_neg_zero", negz, negz_init, [30] * 3, 0.0, 5, None),
+        ("nan_and_empty", nan_p, nan_init, [20] * 3, 0.19, 5, None),
+        ("ties_S9_A1=4", ties, crf(3, 30, 9, 26)[1], [30] * 3, 0.0, 5, None),
+        ("zero_lengths", *crf(4, 16, 8, 27), [0, 16, 0, 5], 0.1, 5, None),
+        ("overflow_N8", *crf(2, 30, 8, 28), [30, 30], 0.0, 5, 8),
+        ("init_wider_than_S", *crf(3, 24, 8, 29, Si=11), [24] * 3, 0.05, 5, None),
+        ("beam8", *crf(3, 30, 16, 30), [30] * 3, 0.0, 8, None),
+        ("beam16", *crf(3, 30, 16, 31), [30] * 3, 0.0, 16, None),
+        ("A1=8", *crf(3, 20, 8, 32, A1=8), [20, 9, 20], 0.05, 5, None),
+    ]
+    rng = np.random.RandomState(33)
+    cases.append(
+        (f"B{B_CRF}_T{T_CRF}_S{S_CRF}", *make_crf_reads(B_CRF, T_CRF, S_CRF, 5, 34),
+         list(rng.randint(0, T_CRF + 1, size=B_CRF)), THR, BEAM, None)
+    )
+    return cases
+
+
+def seq_path(out, i):
+    """(sequence, path) of read i of a result dict on any device."""
+    n = int(out["count"][i])
+    labels = out["labels_rev"][i, :n].tolist()[::-1]
+    return "".join(ALPHABET[l + 1] for l in labels), out["times_rev"][i, :n].tolist()[::-1]
 
 
 def main():
@@ -122,10 +234,13 @@ def main():
     sys.path.insert(0, os.path.join(root, "tests"))
     import oracle  # numpy-only reference semantics
     from fast_ctc_decode_tpu_torch import BatchBeamDecoder, decode_many
-    from fast_ctc_decode_tpu_torch import native
+    from fast_ctc_decode_tpu_torch import BatchCrfBeamDecoder, BatchViterbiDecoder
+    from fast_ctc_decode_tpu_torch import api, decode_many_crf, native
     from fast_ctc_decode_tpu_torch.ops import _build, beam_cuda, beam_fast
+    from fast_ctc_decode_tpu_torch.ops import beam_exact_cuda
     from fast_ctc_decode_tpu_torch.utils import profiling
 
+    run_t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
 
     # ---- phase 1: card, versions, kernel build ----
@@ -172,6 +287,47 @@ def main():
             raise AssertionError(f"kernel != plain on case {name}")
         err_beam, err_tb = max(err_beam, d_beam, d_all), max(err_tb, d_tb, d_all)
 
+    # ---- phase 2b: CRF beam and exact tree kernels vs plain, bit for bit ----
+    err_crf = err_exact = err_exact_crf = 0
+    for name, probs, lengths, thr, K, collapse, N in exact_cases():
+        p = torch.from_numpy(probs).to(dev)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        N = N or beam_exact_cuda.beam_ops.default_max_nodes(probs.shape[1], K, probs.shape[2] - 1)
+        got = beam_exact_cuda.beam_search_exact_kernel_batch(
+            p, ln, thr, beam_size=K, collapse_repeats=collapse, max_nodes=N)
+        want = beam_exact_cuda.beam_search_exact_plain(
+            p, ln, thr, beam_size=K, collapse_repeats=collapse, max_nodes=N)
+        d = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
+        torch.cuda.synchronize()
+        log(f"parity exact {name}: max_abs_err {d}, err codes {sorted(set(got['err'].tolist()))}")
+        if d:
+            raise AssertionError(f"exact kernel != plain on case {name}")
+        err_exact = max(err_exact, d)
+    for name, probs, init, lengths, thr, K, N in crf_cases():
+        p = torch.from_numpy(probs).to(dev)
+        ini = torch.from_numpy(init).to(dev)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        ids_k = beam_cuda.crf_beam_ids_kernel(p, ini, ln, thr, beam_size=K)
+        ids_p = beam_cuda.crf_beam_ids_plain(p, ini, ln, thr, beam_size=K)
+        d_ids = max(max_abs_diff(x, y) for x, y in zip(ids_k, ids_p))
+        got = beam_cuda.crf_beam_search_kernel_batch(p, ini, ln, thr, beam_size=K)
+        want = beam_fast.crf_beam_search_fast_batch(p, ini, ln, thr, beam_size=K)
+        d_crf = max(d_ids, max(max_abs_diff(got[f], want[f]) for f in FIELDS))
+        if B_CRF_EXACT < probs.shape[0]:  # the exact engine's full width is B_CRF_EXACT
+            p, ini, ln = p[:B_CRF_EXACT].contiguous(), ini[:B_CRF_EXACT].contiguous(), ln[:B_CRF_EXACT]
+        N = N or beam_exact_cuda.beam_ops.default_max_nodes(probs.shape[1], K, probs.shape[3] - 1)
+        got = beam_exact_cuda.crf_beam_search_exact_kernel_batch(
+            p, ini, ln, thr, beam_size=K, max_nodes=N)
+        want = beam_exact_cuda.crf_beam_search_exact_plain(
+            p, ini, ln, thr, beam_size=K, max_nodes=N)
+        d_ex = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
+        torch.cuda.synchronize()
+        log(f"parity crf {name}: beam max_abs_err {d_crf}, exact {d_ex}, err codes "
+            f"{sorted(set(ids_k[2].tolist()))} / {sorted(set(got['err'].tolist()))}")
+        if d_crf or d_ex:
+            raise AssertionError(f"CRF kernel != plain on case {name}")
+        err_crf, err_exact_crf = max(err_crf, d_crf), max(err_exact_crf, d_ex)
+
     # ---- phase 3: the main path at B=32768, T=1000 ----
     probs = make_reads(B_MAIN, T_MAIN, len(ALPHABET), 42)
     probs_d = torch.from_numpy(probs).to(dev)
@@ -186,7 +342,7 @@ def main():
     t0 = time.perf_counter()
     res = dec.decode(probs_d, lengths_d)
     main_s = time.perf_counter() - t0
-    launches = dict(beam_cuda.launches)
+    launches = {k: beam_cuda.launches[k] for k in ("beam", "traceback")}
     log(f"main path: {B_MAIN} reads decoded in {main_s:.3f} s (first call), "
         f"launches {launches}, peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
@@ -260,8 +416,194 @@ def main():
     log(f"decode stages (one call, s): {stages}; "
         f"native detok {'loaded' if native.get_lib() is not None else 'absent (Python path)'}")
 
+    del probs_d, lengths_d, ids_log, fin, out
+    torch.cuda.empty_cache()
+
+    def reset_counts():
+        beam_cuda.reset_launches()
+        beam_exact_cuda.reset_launches()
+
+    def counts():
+        return {**beam_cuda.launches, **beam_exact_cuda.launches}
+
+    def oracle_gate(name, res, oracle_fn, with_path):
+        for i in np.linspace(0, len(res) - 1, 8).astype(int):
+            want_seq, want_path = oracle_fn(i)
+            if res[i][0] != want_seq:
+                raise AssertionError(f"{name} read {i}: {res[i][0]!r} != oracle {want_seq!r}")
+            if with_path and res[i][1] != want_path:
+                raise AssertionError(f"{name} read {i}: path differs from the oracle")
+            if len(res[i][1]) != len(want_seq):
+                raise AssertionError(f"{name} read {i}: path length {len(res[i][1])}")
+        log(f"oracle gate {name}: 8 sampled reads equal tests/oracle.py "
+            f"({'sequence and path' if with_path else 'sequence'})")
+
+    def drive(name, dec, args, kernels):
+        """One decode of a full-width path between counter reads."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = dec.decode(*args)
+        wall = time.perf_counter() - t0
+        got = counts()
+        log(f"{name}: {len(res)} reads decoded in {wall:.3f} s (first call), launches "
+            f"{ {k: got[k] for k in kernels} }, peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+        if min(got[k] for k in kernels) < 1:
+            raise AssertionError(f"{name}: a kernel of the path never launched: {got}")
+        if any(r[2] != 0 for r in res):
+            raise AssertionError(f"{name}: status codes not all OK")
+        return res, {k: got[k] for k in kernels}
+
+    # ---- phase 6: the single-read API and CRF paths at full width ----
+    path_launches = {}
+    ex_probs = make_reads(B_EXACT, T_MAIN, len(ALPHABET), 43)
+    ex_probs_d = torch.from_numpy(ex_probs).to(dev)
+    ex_len_d = torch.full((B_EXACT,), T_MAIN, dtype=torch.int32, device=dev)
+    ex_dec = BatchBeamDecoder(ALPHABET, T=T_MAIN, beam_size=BEAM, beam_cut_threshold=THR,
+                              engine="exact", device="cuda")
+    ex_res, got = drive("exact 1D path", ex_dec, (ex_probs_d, ex_len_d), ["exact"])
+    path_launches.update(got)
+    oracle_gate("exact 1D", ex_res,
+                lambda i: oracle.beam_search(ex_probs[i], ALPHABET, BEAM, THR), True)
+
+    crf_probs, crf_init = make_crf_reads(B_CRF, T_CRF, S_CRF, len(ALPHABET), 44)
+    crf_probs_d = torch.from_numpy(crf_probs).to(dev)
+    crf_init_d = torch.from_numpy(crf_init).to(dev)
+    crf_len_d = torch.full((B_CRF,), T_CRF, dtype=torch.int32, device=dev)
+    crf_dec = BatchCrfBeamDecoder(ALPHABET, T=T_CRF, n_state=S_CRF, beam_size=BEAM,
+                                  beam_cut_threshold=THR, device="cuda")
+    if crf_dec.engine != "cuda":
+        raise AssertionError(f"default CRF engine on the card is {crf_dec.engine!r}")
+    crf_res, got = drive("CRF cuda path", crf_dec, (crf_probs_d, crf_init_d, crf_len_d),
+                         ["crf_beam", "traceback"])
+    path_launches.update(got)
+    crf_oracle = lambda i: oracle.crf_beam_search(crf_probs[i], crf_init[i], ALPHABET, BEAM, THR)
+    oracle_gate("CRF cuda", crf_res, crf_oracle, False)
+
+    xc = slice(0, B_CRF_EXACT)
+    xc_args = (crf_probs_d[xc].contiguous(), crf_init_d[xc].contiguous(), crf_len_d[xc])
+    xc_dec = BatchCrfBeamDecoder(ALPHABET, T=T_CRF, n_state=S_CRF, beam_size=BEAM,
+                                 beam_cut_threshold=THR, engine="exact", device="cuda")
+    xc_res, got = drive("exact CRF path", xc_dec, xc_args, ["exact_crf"])
+    path_launches.update(got)
+    oracle_gate("exact CRF", xc_res, crf_oracle, True)
+    if any(a[0] != b[0] for a, b in zip(xc_res, crf_res[:B_CRF_EXACT])):
+        raise AssertionError("CRF engines cuda and exact give different sequences")
+
+    vit_probs = make_reads(B_VITERBI, T_MAIN, len(ALPHABET), 45)
+    vit_probs_d = torch.from_numpy(vit_probs).to(dev)
+    vit_len = np.random.RandomState(46).randint(0, T_MAIN + 1, size=B_VITERBI).astype(np.int32)
+    vit_len_d = torch.from_numpy(vit_len).to(dev)
+    vit_dec = BatchViterbiDecoder(ALPHABET, T=T_MAIN, device="cuda")
+    vit_gpu = {k: v.cpu() for k, v in vit_dec.decode_arrays(vit_probs_d, vit_len_d).items()}
+    vit_cpu = BatchViterbiDecoder(ALPHABET, T=T_MAIN, device="cpu").decode_arrays(
+        torch.from_numpy(vit_probs), torch.from_numpy(vit_len))
+    for f in ("tokens", "path", "n"):
+        if not torch.equal(vit_gpu[f], vit_cpu[f]):
+            raise AssertionError(f"viterbi: {f} on the card differs from the CPU run")
+    q_diff = (vit_gpu["qints"] - vit_cpu["qints"]).abs()
+    valid = torch.arange(T_MAIN)[None, :] < vit_cpu["n"][:, None]
+    q_diff = torch.where(valid, q_diff, 0)
+    if int(q_diff.max()) > 1:
+        raise AssertionError(f"viterbi: phred ints differ by {int(q_diff.max())} (> 1)")
+    vit_res = vit_dec.decode(vit_probs_d, vit_len_d, qstring=True)
+    want0 = api.viterbi_search(vit_probs[0, : vit_len[0]], ALPHABET, qstring=True) \
+        if vit_len[0] else ("", [])
+    if vit_res[0][1] != want0[1] or vit_res[0][0][: len(want0[1])] != want0[0][: len(want0[1])]:
+        raise AssertionError("viterbi: read 0 differs from the single-read API")
+    log(f"viterbi path: {B_VITERBI} reads, tokens/path/n equal to the CPU run, phred ints "
+        f"within 1 (tolerance 1: f32 run sums by atomics on the card); reads with a "
+        f"differing phred int: {int((q_diff.amax(1) > 0).sum())}")
+
+    # the single-read API on the card equals the batch results
+    for i in (0, 5):
+        got = api.beam_search(ex_probs[i], ALPHABET, BEAM, THR, device="cuda")
+        if got != ex_res[i][:2]:
+            raise AssertionError(f"api.beam_search read {i} differs from the exact batch")
+        got = api.crf_beam_search(crf_probs[i], crf_init[i], ALPHABET, BEAM, THR, device="cuda")
+        if got != xc_res[i][:2]:
+            raise AssertionError(f"api.crf_beam_search read {i} differs from the exact batch")
+        got = api.crf_beam_search(crf_probs[i], crf_init[i], ALPHABET, BEAM, THR,
+                                  engine="fast", device="cuda")
+        if got != crf_res[i][:2]:
+            raise AssertionError(f"api.crf_beam_search(fast) read {i} differs from the batch")
+    log("single-read api.beam_search / api.crf_beam_search (exact, fast) on the card "
+        "equal the batch results")
+
+    crf_lens = np.random.RandomState(47).randint(50, T_CRF + 1, size=300)
+    crf_lens[0] = T_CRF  # the interrupted run sees the same auto bucket edges
+    crf_reads = [
+        tuple(x[0] for x in make_crf_reads(1, int(n), S_CRF, len(ALPHABET), 2000 + i))
+        for i, n in enumerate(crf_lens)
+    ]
+    kw = dict(beam_size=BEAM, beam_cut_threshold=THR, batch_size=64, device="cuda")
+    t0 = time.perf_counter()
+    crf_full = decode_many_crf(crf_reads, ALPHABET, **kw)
+    crf_full_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "crf.jsonl")
+        half = decode_many_crf(crf_reads[:150], ALPHABET, checkpoint_path=ckpt, **kw)
+        resumed = decode_many_crf(crf_reads, ALPHABET, checkpoint_path=ckpt, **kw)
+        before = counts()
+        again = decode_many_crf(crf_reads, ALPHABET, checkpoint_path=ckpt, **kw)
+        if counts() != before:
+            raise AssertionError("a complete CRF checkpoint decoded again")
+    if half != crf_full[:150] or resumed != crf_full or again != crf_full:
+        raise AssertionError("decode_many_crf: resumed results differ from an uninterrupted run")
+    if any(r[2] != 0 for r in crf_full):
+        raise AssertionError("decode_many_crf: status codes not all OK")
+    log(f"decode_many_crf: {len(crf_reads)} reads, S={S_CRF}, {crf_full_s:.3f} s "
+        f"uninterrupted; resumed run equals it")
+
+    # ---- phase 7: times of the new kernels, their plain versions, decoders ----
+    crf_shape = f"B={B_CRF} T={T_CRF} S={S_CRF}"
+    ex_shape = f"B={B_EXACT} T={T_MAIN}"
+    xc_shape = f"B={B_CRF_EXACT} T={T_CRF} S={S_CRF}"
+    timed = [
+        ("crf beam kernel", crf_shape, lambda: beam_cuda.crf_beam_ids_kernel(
+            crf_probs_d, crf_init_d, crf_len_d, THR, beam_size=BEAM)),
+        ("plain crf beam", crf_shape, lambda: beam_cuda.crf_beam_ids_plain(
+            crf_probs_d, crf_init_d, crf_len_d, THR, beam_size=BEAM)),
+        ("exact kernel", ex_shape, lambda: beam_exact_cuda.beam_search_exact_kernel_batch(
+            ex_probs_d, ex_len_d, THR, beam_size=BEAM)),
+        ("plain exact", ex_shape, lambda: beam_exact_cuda.beam_search_exact_plain(
+            ex_probs_d, ex_len_d, THR, beam_size=BEAM, max_nodes=ex_dec.max_nodes)),
+        ("exact crf kernel", xc_shape, lambda: beam_exact_cuda.crf_beam_search_exact_kernel_batch(
+            *xc_args, THR, beam_size=BEAM)),
+        ("plain exact crf", xc_shape, lambda: beam_exact_cuda.crf_beam_search_exact_plain(
+            *xc_args, THR, beam_size=BEAM, max_nodes=xc_dec.max_nodes)),
+    ]
+    new_ms = {}
+    for name, shape, fn in timed:
+        new_ms[name] = median_event_ms(fn, torch)
+        log(f"time {name} {shape}: {new_ms[name]!r} ms [{smi}]")
+    dec_ms = {
+        f"exact decode_arrays B={B_EXACT} T={T_MAIN}": median_ms(
+            lambda: ex_dec.decode_arrays(ex_probs_d, ex_len_d), torch),
+        f"exact decode B={B_EXACT} T={T_MAIN}": median_ms(
+            lambda: ex_dec.decode(ex_probs_d, ex_len_d), torch),
+        f"crf cuda decode_arrays B={B_CRF} T={T_CRF} S={S_CRF}": median_ms(
+            lambda: crf_dec.decode_arrays(crf_probs_d, crf_init_d, crf_len_d), torch),
+        f"crf cuda decode B={B_CRF} T={T_CRF} S={S_CRF}": median_ms(
+            lambda: crf_dec.decode(crf_probs_d, crf_init_d, crf_len_d), torch),
+        f"crf exact decode_arrays B={B_CRF_EXACT} T={T_CRF} S={S_CRF}": median_ms(
+            lambda: xc_dec.decode_arrays(*xc_args), torch),
+        f"crf exact decode B={B_CRF_EXACT} T={T_CRF} S={S_CRF}": median_ms(
+            lambda: xc_dec.decode(*xc_args), torch),
+        f"viterbi decode_arrays B={B_VITERBI} T={T_MAIN}": median_ms(
+            lambda: vit_dec.decode_arrays(vit_probs_d, vit_len_d), torch),
+        f"viterbi decode B={B_VITERBI} T={T_MAIN}": median_ms(
+            lambda: vit_dec.decode(vit_probs_d, vit_len_d), torch),
+    }
+    for name, t in dec_ms.items():
+        B = int(name.split("B=")[1].split()[0])
+        log(f"time {name}: {t!r} ms ({B / (t / 1e3):.1f} reads/s) [{smi}]")
+
     if "jax" in sys.modules or any(m.startswith("fast_ctc_decode_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
+    log(f"total wall time: {time.perf_counter() - run_t0:.1f} s")
     src = "fast_ctc_decode_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         {"name": "beam_ids_kernel", "route": "cuda", "source": src + "beam_kernel.cu",
@@ -272,6 +614,18 @@ def main():
          "replaces": "fast_ctc_decode_tpu/ops/beam_pallas.py:967",
          "launches": launches["traceback"], "max_abs_err": err_tb,
          "ms": ms["traceback kernel"], "plain_ms": ms["plain traceback"]},
+        {"name": "crf_beam_ids_kernel", "route": "cuda", "source": src + "crf_beam_kernel.cu",
+         "replaces": "fast_ctc_decode_tpu/ops/beam_pallas.py:1270",
+         "launches": path_launches["crf_beam"], "max_abs_err": err_crf,
+         "ms": new_ms["crf beam kernel"], "plain_ms": new_ms["plain crf beam"]},
+        {"name": "exact_beam_kernel", "route": "cuda", "source": src + "exact_beam_kernel.cu",
+         "replaces": "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65",
+         "launches": path_launches["exact"], "max_abs_err": err_exact,
+         "ms": new_ms["exact kernel"], "plain_ms": new_ms["plain exact"]},
+        {"name": "exact_beam_kernel_crf", "route": "cuda", "source": src + "exact_beam_kernel.cu",
+         "replaces": "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65",
+         "launches": path_launches["exact_crf"], "max_abs_err": err_exact_crf,
+         "ms": new_ms["exact crf kernel"], "plain_ms": new_ms["plain exact crf"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

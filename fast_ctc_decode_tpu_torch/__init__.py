@@ -1,18 +1,42 @@
 """fast_ctc_decode_tpu_torch — the PyTorch + CUDA port of fast_ctc_decode_tpu.
 
-Batched 1D CTC prefix beam search on one NVIDIA GPU (hand-written CUDA
-kernels for Hopper, ``sm_90a``) or on the CPU (the plain PyTorch engine),
-bit-identical to the JAX package's ``fast``/``pallas`` engines.  It imports
-neither jax nor the JAX package.
+CTC decoding on one NVIDIA GPU (hand-written CUDA kernels for Hopper,
+``sm_90a``) or on the CPU (plain PyTorch engines), bit-identical to the
+JAX package's engines.  It imports neither jax nor the JAX package.
 
-Public surface: ``BatchBeamDecoder`` and ``decode_many`` (the batch
-pipeline), ``SearchError`` and ``__version__``.  The single-read API of the
-JAX package (``api.py``) is not ported yet.
+Public surface:
+  - the single-read reference API (``api.py``): ``viterbi_search``,
+    ``beam_search``, ``crf_greedy_search`` and ``crf_beam_search``, each
+    with a keyword-only ``device``;
+  - the batch pipeline: ``BatchBeamDecoder`` (engines cuda/fast/exact),
+    ``BatchViterbiDecoder``, ``BatchCrfBeamDecoder`` (cuda/fast/exact),
+    and the checkpointable ``decode_many`` / ``decode_many_crf``;
+  - ``SearchError`` and ``__version__``.
+The duplex entry points of the JAX package are not ported yet.
 """
 
+from .api import beam_search, crf_beam_search, crf_greedy_search, viterbi_search
 from .errors import SearchError
-from .parallel.pipeline import BatchBeamDecoder, decode_many
+from .parallel.pipeline import (
+    BatchBeamDecoder,
+    BatchCrfBeamDecoder,
+    BatchViterbiDecoder,
+    decode_many,
+    decode_many_crf,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["BatchBeamDecoder", "decode_many", "SearchError", "__version__"]
+__all__ = [
+    "viterbi_search",
+    "beam_search",
+    "crf_greedy_search",
+    "crf_beam_search",
+    "BatchBeamDecoder",
+    "BatchViterbiDecoder",
+    "BatchCrfBeamDecoder",
+    "decode_many",
+    "decode_many_crf",
+    "SearchError",
+    "__version__",
+]

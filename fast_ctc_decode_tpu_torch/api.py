@@ -1,0 +1,271 @@
+"""Reference-parity single-read API: viterbi, beam, CRF greedy and CRF beam.
+
+Port of four of the six entry points of ``fast_ctc_decode_tpu/api.py``
+(the reference's PyO3 bindings, src/lib.rs:170-286): the same signatures,
+defaults, argument checks, messages and exception types (ValueError for
+precondition failures before any decode, RuntimeError (``SearchError``)
+for search failures, TypeError for a non-f32 or wrong-rank array).  Each
+function adds one keyword-only ``device`` ("cpu" by default): the decode
+runs there, on the hand-written kernels for a CUDA device and on the plain
+torch engines for the CPU.  The two duplex entry points are not ported yet.
+
+Engines of the two beam functions:
+  - "exact" (default): the flattened-suffix-tree engine, bit-exact
+    sequence, path and tie-break parity with the reference; ``max_nodes``
+    is the per-read tree budget (default: the worst case for the input);
+    too small a budget raises NODE_OVERFLOW.
+  - "fast": the hash-identity engine (the batch path with B=1), identical
+    sequences; ``path`` entries of pruned-and-re-derived prefixes report
+    their latest creation time.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import errors
+from .alphabet import normalize_alphabet
+from .ops import beam as beam_ops
+from .ops import beam_cuda
+from .ops import beam_exact_cuda
+from .ops import beam_fast
+from .ops import crf as crf_ops
+from .ops import viterbi as viterbi_ops
+
+__all__ = [
+    "viterbi_search",
+    "beam_search",
+    "crf_greedy_search",
+    "crf_beam_search",
+]
+
+
+def _as_f32(arr, ndim: int, name: str) -> np.ndarray:
+    """Strict dtype/rank check mirroring PyO3's PyArrayN<f32> extraction:
+    a non-f32 or wrong-rank array is a TypeError, not a silent cast."""
+    if not isinstance(arr, np.ndarray):
+        raise TypeError(f"{name} must be a numpy.ndarray")
+    if arr.dtype != np.float32:
+        raise TypeError(f"{name} must have dtype float32")
+    if arr.ndim != ndim:
+        raise TypeError(f"{name} must be {ndim}-dimensional")
+    return np.ascontiguousarray(arr)
+
+
+def _check_beam_args(alphabet: List[str], beam_size: int, beam_cut_threshold: float):
+    """Shared beam_search argument validation (src/lib.rs:332-350), with the
+    threshold comparison done in f32 like the Rust binding."""
+    if beam_size == 0:
+        raise ValueError("beam_size cannot be 0")
+    thr = np.float32(beam_cut_threshold)
+    if thr < -np.float32(0.0):
+        raise ValueError("beam_cut_threshold must be at least 0.0")
+    max_beam_cut = np.float32(1.0) / np.float32(len(alphabet))
+    if thr >= max_beam_cut:
+        raise ValueError(f"beam_cut_threshold cannot be more than {max_beam_cut}")
+
+
+def _beam_result_to_seq_path(out, alphabet: List[str]) -> Tuple[str, List[int]]:
+    """One read's result dict (row 0 of a B=1 batch) -> (sequence, path)."""
+    out = {k: v[0].cpu().numpy() for k, v in out.items()}
+    errors.raise_for_status(int(out["err"]))
+    n = int(out["count"])
+    # traceback is leaf->root; the reference reverses both (src/search.rs:295-298)
+    seq = "".join(alphabet[int(l) + 1] for l in out["labels_rev"][:n][::-1])
+    path = [int(t) for t in out["times_rev"][:n][::-1]]
+    return seq, path
+
+
+def _one_read(x: np.ndarray, device):
+    """A host read as a [1, ...] tensor on ``device`` plus its [1] length."""
+    dev = torch.device(device)
+    probs = torch.from_numpy(x).to(dev)[None]
+    return dev, probs, torch.full((1,), x.shape[0], dtype=torch.int32, device=dev)
+
+
+def viterbi_search(
+    network_output,
+    alphabet: Union[str, Sequence],
+    qstring: bool = False,
+    qscale: float = 1.0,
+    qbias: float = 0.0,
+    collapse_repeats: bool = True,
+    *,
+    device="cpu",
+) -> Tuple[str, List[int]]:
+    """Viterbi decode; parity with src/lib.rs:180-212 / src/search.rs:320-383.
+    The per-frame argmax runs on ``device``; the run-mean qualities are
+    assembled on the host with the reference's sequential f32 sums."""
+    alphabet = normalize_alphabet(alphabet)
+    network_output = _as_f32(network_output, 2, "network_output")
+    if len(alphabet) == 0:
+        raise ValueError("Empty alphabet given")
+    if len(alphabet) != network_output.shape[1]:
+        raise ValueError(
+            "alphabet size does not match probability matrix dimensions"
+        )
+    if network_output.shape[0] == 0:
+        raise ValueError("network_output must not be empty")
+
+    labels, pmax = viterbi_ops.viterbi_core(
+        torch.from_numpy(network_output).to(torch.device(device))
+    )
+    return viterbi_ops.assemble_host(
+        labels.cpu().numpy(), pmax.cpu().numpy(), alphabet, qstring, qscale,
+        qbias, collapse_repeats,
+    )
+
+
+def beam_search(
+    network_output,
+    alphabet: Union[str, Sequence],
+    beam_size: int = 5,
+    beam_cut_threshold: float = 0.0,
+    collapse_repeats: bool = True,
+    *,
+    max_nodes: Optional[int] = None,
+    engine: Optional[str] = None,
+    device="cpu",
+) -> Tuple[str, List[int]]:
+    """CTC prefix beam search; parity with src/lib.rs:323-365 /
+    src/search.rs:159-301.  ``engine``: "exact" (default) or "fast" (see
+    the module docstring); combining ``max_nodes`` with "fast" is an
+    error.  On a CUDA ``device`` both run the hand-written kernels and
+    raise outside their bounds (beam_size <= 16, len(alphabet) <= 8)."""
+    alphabet = normalize_alphabet(alphabet)
+    network_output = _as_f32(network_output, 2, "network_output")
+    if len(alphabet) != network_output.shape[1]:
+        raise ValueError(
+            f"alphabet size {len(alphabet)} does not match probability matrix "
+            f"inner dimension {network_output.shape[1]}"
+        )
+    _check_beam_args(alphabet, beam_size, beam_cut_threshold)
+
+    T, A1 = network_output.shape
+    if T == 0:
+        return "", []
+    if engine is None:
+        engine = "exact"
+    thr = np.float32(beam_cut_threshold)
+    kw = dict(beam_size=int(beam_size), collapse_repeats=bool(collapse_repeats))
+    if engine == "fast":
+        if max_nodes is not None:
+            raise ValueError("max_nodes requires engine='exact'")
+        dev, probs, lengths = _one_read(network_output, device)
+        fn = (
+            beam_cuda.beam_search_kernel_batch
+            if dev.type == "cuda"
+            else beam_fast.beam_search_fast_batch
+        )
+        out = fn(probs, lengths, thr, **kw)
+    elif engine == "exact":
+        if max_nodes is None:
+            max_nodes = beam_ops.default_max_nodes(T, beam_size, A1 - 1)
+        dev, probs, lengths = _one_read(network_output, device)
+        fn = (
+            beam_exact_cuda.beam_search_exact_kernel_batch
+            if dev.type == "cuda"
+            else beam_ops.beam_search_device_batch
+        )
+        out = fn(probs, lengths, thr, max_nodes=int(max_nodes), **kw)
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
+    return _beam_result_to_seq_path(out, alphabet)
+
+
+def crf_greedy_search(
+    network_output,
+    init_state,
+    alphabet: Union[str, Sequence],
+    qstring: bool = False,
+    qscale: float = 1.0,
+    qbias: float = 0.0,
+    *,
+    device="cpu",
+) -> Tuple[str, List[int]]:
+    """Greedy CRF decode; parity with src/lib.rs:217-250 / src/search.rs:385-423."""
+    alphabet = normalize_alphabet(alphabet)
+    network_output = _as_f32(network_output, 3, "network_output")
+    init_state = _as_f32(init_state, 1, "init_state")
+    if len(alphabet) == 0:
+        raise ValueError("Empty alphabet given")
+    if network_output.shape[2] != len(alphabet):
+        raise ValueError(
+            "alphabet size does not match probability matrix dimensions"
+        )
+    if network_output.shape[0] == 0:
+        raise ValueError("network_output must not be empty")
+
+    dev, probs, lengths = _one_read(network_output, device)
+    out = crf_ops.crf_greedy_batch(
+        probs, torch.from_numpy(init_state).to(dev)[None], lengths, qscale, qbias
+    )
+    out = {k: v[0].cpu().numpy() for k, v in out.items()}
+    n = int(out["n"])
+    seq = "".join(alphabet[int(t)] for t in out["tokens"][:n])
+    if qstring:
+        seq += "".join(chr(int(q) + 33) for q in out["qints"][:n])
+    return seq, [int(i) for i in out["path"][:n]]
+
+
+def crf_beam_search(
+    network_output,
+    init_state,
+    alphabet: Union[str, Sequence],
+    beam_size: int = 5,
+    beam_cut_threshold: float = 0.0,
+    *,
+    max_nodes: Optional[int] = None,
+    engine: str = "exact",
+    device="cpu",
+) -> Tuple[str, List[int]]:
+    """CRF prefix beam search; parity with src/lib.rs:255-286 /
+    src/search.rs:38-157.  The reference binding performs no
+    beam_size/threshold validation here; beam_size=0 empties the beam on
+    the first step, which surfaces as RanOutOfBeam.  ``engine``: "exact"
+    (default) or "fast"; "fast" ignores ``max_nodes``, as the JAX package
+    does."""
+    alphabet = normalize_alphabet(alphabet)
+    network_output = _as_f32(network_output, 3, "network_output")
+    init_state = _as_f32(init_state, 1, "init_state")
+    if len(alphabet) == 0:
+        raise ValueError("Empty alphabet given")
+    if network_output.shape[2] != len(alphabet):
+        raise ValueError(
+            "alphabet size does not match probability matrix dimensions"
+        )
+    if network_output.shape[0] == 0:
+        raise ValueError("network_output must not be empty")
+    if beam_size == 0:
+        # truncate(0) empties the beam immediately (src/search.rs:133-137)
+        raise errors.SearchError(errors.RAN_OUT_OF_BEAM)
+
+    T = network_output.shape[0]
+    A = network_output.shape[2] - 1
+    thr = np.float32(beam_cut_threshold)
+    if engine == "fast":
+        dev, probs, lengths = _one_read(network_output, device)
+        init = torch.from_numpy(init_state).to(dev)[None]
+        fn = (
+            beam_cuda.crf_beam_search_kernel_batch
+            if dev.type == "cuda"
+            else beam_fast.crf_beam_search_fast_batch
+        )
+        out = fn(probs, init, lengths, thr, beam_size=int(beam_size))
+    elif engine == "exact":
+        if max_nodes is None:
+            max_nodes = beam_ops.default_max_nodes(T, beam_size, A)
+        dev, probs, lengths = _one_read(network_output, device)
+        init = torch.from_numpy(init_state).to(dev)[None]
+        fn = (
+            beam_exact_cuda.crf_beam_search_exact_kernel_batch
+            if dev.type == "cuda"
+            else crf_ops.crf_beam_search_device_batch
+        )
+        out = fn(probs, init, lengths, thr, beam_size=int(beam_size), max_nodes=int(max_nodes))
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
+    return _beam_result_to_seq_path(out, alphabet)

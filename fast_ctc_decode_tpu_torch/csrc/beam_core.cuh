@@ -1,0 +1,353 @@
+// Batched CTC prefix beam search, hash-identity form: the forward beam over
+// all T steps, shared by the 1D kernel (beam_kernel.cu) and the CRF kernel
+// (crf_beam_kernel.cu).
+//
+// It computes what the plain engine fast_ctc_decode_tpu_torch/ops/beam_fast.py
+// computes, bit for bit: hash-identity tips, analytic merge (blank + stay +
+// one arrival), K rounds of (max total, tie -> min id) top-K, true-division
+// renormalisation, the beam cut, collapse_repeats (1D), per-tip transition
+// states (CRF), per-read lengths and the status codes.  Outputs: the
+// [T, K, B] log of entry-tip ids (read-minor), the final best id and the
+// status code of every read.
+//
+// Design: one thread per read, block 128.  The beam (K tips x lab, gap,
+// h1, h2, last label, state, id, valid) and the K + K*A candidate keys live
+// in per-thread arrays whose sizes are template bounds (KMAX, AMAX); every
+// loop runs to the bound and is predicated on the runtime K and A, so the
+// arrays are indexed by constants after unrolling and can stay in
+// registers.  The loop over t runs inside the thread; a read that is past
+// its length or has a non-zero status is frozen and only logs its ids from
+// then on.
+//
+// CRF (template flag): each tip reads its own row probs[b, t, state_k, :]
+// by one indexed load (the TPU kernel's log2(S) select tree and its
+// power-of-two S / 8-lane padding are layout and have no counterpart), adds
+// +0.0 to every entry as the plain engine's one-hot masked sum does, has no
+// repeat collapse and no stay, and carries its state through selection.
+//
+// What bounds it on this card: latency and registers.  Each step is a long
+// dependent chain of compares and selects per thread, and the per-thread
+// state (about 150 live values at K=5, A=4) limits how many warps an SM
+// holds; the wide instances spill to local memory.  The simple design
+// accepts that: no shared-memory staging, no warp cooperation.  Its loads
+// (4*(A+1) bytes per step, per tip for CRF) are strided by T*(A+1)*4 bytes
+// (CRF: T*S*(A+1)*4) between threads and do not coalesce; only the id-log
+// stores do.  Staging tiles through shared memory is left to a measured
+// later change.
+//
+// Bit-parity rules: arithmetic uses __fmul_rn / __fadd_rn / __fdiv_rn
+// (never contracted into FMA; the library is also built with -fmad=false)
+// and IEEE division.  Labels pass the cut as !(p < thr), so NaN passes;
+// blank passes as p0 > thr, so NaN fails.  The selection key maps NaN to
+// +inf and adds +0.0 to canonicalise -0.0.  INCOMPARABLE_VALUES needs a
+// NaN total among >= 2 valid candidates; RAN_OUT_OF_BEAM an empty step.
+// Inputs holding +-inf follow the plain engine too (the JAX Pallas kernel
+// raises one step earlier than its scan engine on them; this kernel and
+// the plain engine follow the scan engine): the CPU tests pin the plain
+// engine to the JAX scan engine on +-inf/NaN batches, and chip_smoke.py
+// holds this kernel to the plain engine on one.
+//
+// Hashes are uint32 with natural wraparound; >> 16 on uint32 is logical.
+// Node ids are t*K*A + k*A + a in int32 (root -1, empty -2); the wrapper
+// refuses shapes where T*K*A overflows.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr uint32_t kSeed1 = 0x9E3779B9u;
+constexpr uint32_t kSeed2 = 0x85EBCA6Bu;
+constexpr uint32_t kMult1 = 0xC2B2AE35u, kAdd1 = 0x165667B1u;
+constexpr uint32_t kMult2 = 0x27D4EB2Fu, kAdd2 = 0x9E3779B1u;
+constexpr int kRoot = -1;
+constexpr int kEmpty = -2;
+constexpr int kIncomparable = 2;  // errors.INCOMPARABLE_VALUES
+constexpr int kRanOut = 1;  // errors.RAN_OUT_OF_BEAM
+constexpr int kBlock = 128;
+
+__device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t x, uint32_t mult,
+                                        uint32_t add) {
+  uint32_t z = h ^ (x * mult + add);
+  z = z * mult;
+  return z ^ (z >> 16);
+}
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// probs: [B, T, A+1] (1D) or [B, T, S, A+1] (CRF) f32; init: [B, Si] f32
+// (CRF only; nullptr for 1D).
+template <int KMAX, int AMAX, bool CRF>
+__global__ void __launch_bounds__(kBlock)
+beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
+                const int* __restrict__ lengths, float thr, int B, int T, int S,
+                int Si, int A, int K, int collapse, int* __restrict__ ids_log,
+                int* __restrict__ fin, int* __restrict__ err_out) {
+  constexpr int CMAX = KMAX + KMAX * AMAX;
+  // Outer loops over K unroll only for the narrow instances: unrolling the
+  // wide ones (128 candidates x 16 rounds) takes nvcc minutes and spills
+  // anyway, so their per-round state lives in local memory.
+  constexpr int UK = KMAX * CMAX <= 256 ? KMAX : 1;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int A1 = A + 1;
+  const int KA = K * A;
+  const int len = lengths[b];
+  const float* row = probs + (size_t)b * (size_t)T * (size_t)S * (size_t)A1;
+
+  // ---- beam state: the root alone in slot 0 ----
+  float lab0 = 0.f, gap0 = 1.f;
+  int st0 = 0;
+  if (CRF) {
+    // (max(init), init[0], argmax(init)): a NaN counts as the maximum and
+    // the first maximum wins, as jnp.max / jnp.argmax (and torch) do
+    const float* ini = init + (size_t)b * Si;
+    lab0 = ini[0];
+    gap0 = ini[0];
+    bool nan_seen = isnan(lab0);
+    for (int s = 1; s < Si && !nan_seen; ++s) {
+      const float v = ini[s];
+      if (isnan(v) || v > lab0) {
+        lab0 = v;
+        st0 = s;
+        nan_seen = isnan(v);
+      }
+    }
+  }
+  float lab[KMAX], gap[KMAX];
+  uint32_t h1[KMAX], h2[KMAX];
+  int ll[KMAX], id[KMAX], st[KMAX];
+  bool valid[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    lab[k] = k == 0 ? lab0 : 0.f;
+    gap[k] = k == 0 ? gap0 : 0.f;
+    h1[k] = k == 0 ? kSeed1 : 0u;
+    h2[k] = k == 0 ? kSeed2 : 0u;
+    ll[k] = -1;
+    st[k] = k == 0 ? st0 : 0;
+    id[k] = k == 0 ? kRoot : kEmpty;
+    valid[k] = k == 0;
+  }
+  int err = 0;
+
+  int t = 0;
+  for (; t < T; ++t) {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+      if (k < K) ids_log[((size_t)t * K + k) * B + b] = id[k];
+    if (t >= len || err != 0) break;  // frozen from here on
+
+    // p[a] (1D: one row) or pk[k][a] (CRF: each tip's row, +0.0 added)
+    float p[AMAX + 1];
+    float pk[KMAX][AMAX + 1];
+#pragma unroll
+    for (int a = 0; a <= AMAX; ++a)
+      p[a] = (!CRF && a <= A) ? row[(size_t)t * A1 + a] : 0.f;
+    if (CRF) {
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        const int s = st[k] < 0 ? 0 : (st[k] > S - 1 ? S - 1 : st[k]);
+        const float* r = row + ((size_t)t * S + s) * A1;
+#pragma unroll
+        for (int a = 0; a <= AMAX; ++a)
+          pk[k][a] = (k < K && a <= A) ? __fadd_rn(r[a], 0.f) : 0.f;
+      }
+    }
+#define P0(k) (CRF ? pk[(k)][0] : p[0])
+#define PL(k, a) (CRF ? pk[(k)][1 + (a)] : p[1 + (a)])
+
+    float lg[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) lg[k] = __fadd_rn(lab[k], gap[k]);
+
+    // ---- expand: extension (k, a) -> mass, push flag, matched tips ----
+    float mext[KMAX][AMAX];
+    bool push[KMAX][AMAX];
+    uint32_t hits[KMAX][AMAX];  // bit j: extension (k, a) targets tip j
+#pragma unroll(UK)
+    for (int k = 0; k < KMAX; ++k) {
+#pragma unroll
+      for (int a = 0; a < AMAX; ++a) {
+        uint32_t m = 0u;
+        bool pu = false;
+        float me = 0.f;
+        if (k < K && a < A) {
+          const uint32_t th1 = mix(h1[k], (uint32_t)a, kMult1, kAdd1);
+          const uint32_t th2 = mix(h2[k], (uint32_t)a, kMult2, kAdd2);
+#pragma unroll
+          for (int j = 0; j < KMAX; ++j)
+            if (j < K && valid[j] && ll[j] == a && h1[j] == th1 && h2[j] == th2)
+              m |= 1u << j;
+          const float pa = PL(k, a);
+          const bool is_rep = !CRF && collapse && ll[k] == a;
+          const bool pushed = valid[k] && !(pa < thr);
+          me = __fmul_rn(is_rep ? gap[k] : lg[k], pa);
+          pu = pushed && (!is_rep || m != 0u || gap[k] > 0.f);
+        }
+        mext[k][a] = me;
+        push[k][a] = pu;
+        hits[k][a] = m;
+      }
+    }
+
+    // ---- analytic merge: blank + stay + arrivals per tip ----
+    float tip_lab[KMAX], tip_gap[KMAX];
+    bool tip_valid[KMAX];
+#pragma unroll(UK)
+    for (int j = 0; j < KMAX; ++j) {
+      float recv = 0.f;
+      bool recv_any = false;
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+        for (int a = 0; a < AMAX; ++a)
+          if (push[k][a] && ((hits[k][a] >> j) & 1u)) {
+            recv = __fadd_rn(recv, mext[k][a]);
+            recv_any = true;
+          }
+      float stay_lab = 0.f;
+      bool stay_push = false;
+      if (!CRF) {
+        const int safe_last = ll[j] < 0 ? 0 : (ll[j] > A - 1 ? A - 1 : ll[j]);
+        float p_stay = 0.f;
+#pragma unroll
+        for (int a = 0; a < AMAX; ++a)
+          if (a == safe_last) p_stay = p[1 + a];
+        stay_push = collapse && valid[j] && ll[j] >= 0 && ll[j] < A && !(p_stay < thr);
+        stay_lab = stay_push ? __fmul_rn(lab[j], p_stay) : 0.f;
+      }
+      const float p0 = j < K ? P0(j) : 0.f;
+      const bool blank_push = valid[j] && (p0 > thr);
+      tip_gap[j] = blank_push ? __fmul_rn(lg[j], p0) : 0.f;
+      tip_lab[j] = __fadd_rn(stay_lab, recv);
+      tip_valid[j] = j < K && (blank_push || stay_push || recv_any);
+    }
+#undef P0
+#undef PL
+
+    // ---- candidate keys: K tips then K*A fresh extensions ----
+    float key[CMAX];
+    int cnt = 0;
+    bool any_nan = false;
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      bool v;
+      float total;
+      if (c < KMAX) {
+        v = tip_valid[c];
+        total = __fadd_rn(tip_lab[c], tip_gap[c]);
+      } else {
+        const int k = (c - KMAX) / AMAX, a = (c - KMAX) % AMAX;
+        v = push[k][a] && hits[k][a] == 0u;
+        total = __fadd_rn(mext[k][a], 0.f);  // c_lab + c_gap with c_gap = 0
+      }
+      cnt += v ? 1 : 0;
+      any_nan = any_nan || (v && isnan(total));
+      key[c] = v ? (isnan(total) ? pos_inf() : __fadd_rn(total, 0.f)) : neg_inf();
+    }
+
+    // ---- top-K: K rounds of (max key, tie -> min id) ----
+    float top = 0.f;
+    float nlab[KMAX], ngap[KMAX];
+    uint32_t nh1[KMAX], nh2[KMAX];
+    int nll[KMAX], nid[KMAX], nst[KMAX];
+    bool nvalid[KMAX];
+#pragma unroll(UK)
+    for (int r = 0; r < KMAX; ++r) {
+      nlab[r] = 0.f;
+      ngap[r] = 0.f;
+      nh1[r] = 0u;
+      nh2[r] = 0u;
+      nll[r] = -1;
+      nst[r] = 0;
+      nid[r] = kEmpty;
+      nvalid[r] = false;
+      if (r >= K) continue;
+      float mx = neg_inf();
+      int best = -1, best_id = 0x7fffffff;
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c) {
+        const int cid = c < KMAX ? id[c]
+                                 : t * KA + ((c - KMAX) / AMAX) * A + (c - KMAX) % AMAX;
+        if (key[c] > mx || (key[c] == mx && key[c] > neg_inf() && cid < best_id)) {
+          mx = key[c];
+          best = c;
+          best_id = cid;
+        }
+      }
+      if (!(mx > neg_inf())) continue;  // no candidate left: slot stays empty
+      float sel_lab = 0.f, sel_gap = 0.f;
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c) {
+        if (c != best) continue;
+        key[c] = neg_inf();
+        if (c < KMAX) {
+          sel_lab = tip_lab[c];
+          sel_gap = tip_gap[c];
+          nh1[r] = h1[c];
+          nh2[r] = h2[c];
+          nll[r] = ll[c];
+          nst[r] = st[c];
+        } else {
+          const int k = (c - KMAX) / AMAX, a = (c - KMAX) % AMAX;
+          sel_lab = mext[k][a];
+          sel_gap = 0.f;
+          nh1[r] = mix(h1[k], (uint32_t)a, kMult1, kAdd1);
+          nh2[r] = mix(h2[k], (uint32_t)a, kMult2, kAdd2);
+          nll[r] = a;
+          nst[r] = CRF ? (st[k] * A) % S + a : 0;
+        }
+      }
+      // the masked sums of the plain engine add +0.0: canonical -0.0
+      sel_lab = __fadd_rn(sel_lab, 0.f);
+      sel_gap = __fadd_rn(sel_gap, 0.f);
+      if (r == 0) top = __fadd_rn(sel_lab, sel_gap);  // raw total, NaN kept
+      nlab[r] = sel_lab;
+      ngap[r] = sel_gap;
+      nid[r] = best_id;
+      nvalid[r] = true;
+    }
+
+    // ---- status, then the renormalised next beam (true division) ----
+    if (cnt >= 2 && any_nan)
+      err = kIncomparable;
+    else if (cnt == 0)
+      err = kRanOut;
+#pragma unroll
+    for (int r = 0; r < KMAX; ++r) {
+      lab[r] = nvalid[r] ? __fdiv_rn(nlab[r], top) : 0.f;
+      gap[r] = nvalid[r] ? __fdiv_rn(ngap[r], top) : 0.f;
+      h1[r] = nh1[r];
+      h2[r] = nh2[r];
+      ll[r] = nll[r];
+      st[r] = nst[r];
+      id[r] = nid[r];
+      valid[r] = nvalid[r];
+    }
+  }
+  // a frozen read logs the same entry ids for every remaining step
+  for (int tt = t + 1; tt < T; ++tt) {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+      if (k < K) ids_log[((size_t)tt * K + k) * B + b] = id[k];
+  }
+  fin[b] = id[0];
+  err_out[b] = err;
+}
+
+template <int KMAX, int AMAX, bool CRF>
+cudaError_t launch_beam_ids(const float* probs, const float* init,
+                            const int* lengths, float thr, int B, int T, int S,
+                            int Si, int A, int K, int collapse, int* ids_log,
+                            int* fin, int* err, cudaStream_t stream) {
+  const dim3 grid((B + kBlock - 1) / kBlock);
+  beam_ids_kernel<KMAX, AMAX, CRF><<<grid, kBlock, 0, stream>>>(
+      probs, init, lengths, thr, B, T, S, Si, A, K, collapse, ids_log, fin, err);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -1,7 +1,8 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and load them with ctypes.
 
-The sources have a plain C interface (no PyTorch headers), so one nvcc call
-compiles them in seconds.  The shared library lands in ``_build/<digest>/``
+The sources have a plain C interface (no PyTorch headers).  Each ``.cu`` is
+compiled to an object by its own nvcc process, all started together, and one
+more nvcc call links the objects.  The shared library lands in ``_build/<digest>/``
 inside this package (listed in ``.gitignore``), keyed by a hash of the
 sources and flags: the first use after a change rebuilds, later uses load
 the cached library.  A failed build raises; nothing falls back.
@@ -30,12 +31,14 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 LIB_NAME = "libctc_kernels.so"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH_FLAGS,
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+_TIMEOUT_S = 900
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -81,16 +84,46 @@ def build() -> BuildResult:
         with open(log_path) as f:
             return BuildResult(out, 0.0, f.read())
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+    objs, jobs = [], []
+    try:
+        for src in srcs:  # one compiler per source, all running at once
+            obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+            objs.append(obj)
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        logs = []
+        for cmd, job in jobs:
+            text, _ = job.communicate(timeout=_TIMEOUT_S)
+            logs.append(text)
+            if job.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({job.returncode}): {' '.join(cmd)}\n{text}"
+                )
+        tmp = f"{out}.{tag}"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        link = subprocess.run(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=_TIMEOUT_S,
         )
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}): {' '.join(cmd)}\n{link.stdout}"
+            )
+    finally:
+        for _, job in jobs:
+            if job.poll() is None:
+                job.kill()
+                job.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    seconds = time.perf_counter() - t0
+    log = "".join(logs) + link.stdout
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, out)
@@ -111,6 +144,15 @@ def load_library():
         ]
         lib.ctc_traceback_launch.restype = i
         lib.ctc_traceback_launch.argtypes = [p, p, i, i, i, i, p, p, p, p]
+        lib.ctc_crf_beam_ids_launch.restype = i
+        lib.ctc_crf_beam_ids_launch.argtypes = [
+            p, p, p, ctypes.c_float, i, i, i, i, i, i, p, p, p, p,
+        ]
+        lib.ctc_exact_beam_launch.restype = i
+        lib.ctc_exact_beam_launch.argtypes = [
+            p, p, p, ctypes.c_float, i, i, i, i, i, i, i, i, i,
+            p, ctypes.c_longlong, p, p, p, p, p,
+        ]
         lib.ctc_cuda_error_string.restype = ctypes.c_char_p
         lib.ctc_cuda_error_string.argtypes = [i]
         _LIB = lib

@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels of the batched 1D beam path, with their plain versions.
+"""Hand-written CUDA kernels of the batched hash-identity beam paths (1D and
+CRF), with their plain versions.
 
-Two kernels, built from ``csrc/`` by ``ops/_build.py`` and launched through
+Three kernels, built from ``csrc/`` by ``ops/_build.py`` and launched through
 ctypes on PyTorch's current stream:
 
  - ``beam_ids_kernel`` (``csrc/beam_kernel.cu``) replaces
@@ -10,7 +11,12 @@ ctypes on PyTorch's current stream:
  - ``traceback_kernel`` (``csrc/traceback_kernel.cu``) replaces
    ``beam_pallas.py::_traceback_kernel`` plus the key sort of
    ``beam_fast._sort_unpack_keys``: a direct walk of the id log, one thread
-   per read.  Plain version: ``beam_fast._traceback_scan_batch``.
+   per read.  Plain version: ``beam_fast._traceback_scan_batch``.  It walks
+   the CRF id log too (same id coding).
+ - ``crf_beam_ids_kernel`` (``csrc/crf_beam_kernel.cu``) replaces
+   ``beam_pallas.py::_crf_beam_kernel``: the CRF instances of the fused
+   beam, one thread per read, each tip loading its own state's row.  Plain
+   version: ``beam_fast.crf_beam_search_ids_batch``.
 
 Each wrapper checks its inputs and its kernel's bounds and raises beyond
 them, whatever the device.  A tensor on the CPU then goes to the plain
@@ -26,12 +32,13 @@ from . import _build
 from . import beam_fast
 
 #: kernel launches per wrapper since the last reset (plain integers)
-launches = {"beam": 0, "traceback": 0}
+launches = {"beam": 0, "traceback": 0, "crf_beam": 0}
 
 MAX_BEAM = 16  # per-thread beam arrays of the widest kernel instance
 MAX_A1 = 8  # blank + at most 7 labels
 
 beam_ids_plain = beam_fast.beam_search_ids_batch
+crf_beam_ids_plain = beam_fast.crf_beam_search_ids_batch
 
 
 def traceback_plain(fin, ids_log, *, T, K, A):
@@ -108,6 +115,54 @@ def beam_ids_kernel(probs, lengths, thr, *, beam_size, collapse_repeats=True):
     return ids_log, fin, err
 
 
+def crf_beam_ids_kernel(probs, init_states, lengths, thr, *, beam_size):
+    """CRF forward beam: ``(ids_log [T, K, B], fin [B], err [B])``, all int32.
+
+    probs: [B, T, S, A+1] f32 contiguous; init_states: [B, Si] f32;
+    lengths: [B] i32; all on one device.
+    """
+    if not isinstance(probs, torch.Tensor) or probs.dim() != 4:
+        raise ValueError("probs must be a [B, T, S, A+1] torch.Tensor")
+    B, T, S, A1 = probs.shape
+    K = int(beam_size)
+    _check(probs, "probs", torch.float32, (B, T, S, A1), probs.device)
+    if not isinstance(init_states, torch.Tensor) or init_states.dim() != 2:
+        raise ValueError("init_states must be a [B, Si] torch.Tensor")
+    Si = init_states.shape[1]
+    _check(init_states, "init_states", torch.float32, (B, Si), probs.device)
+    _check(lengths, "lengths", torch.int32, (B,), probs.device)
+    _bounds(T, K, A1 - 1)
+    _crf_bounds(S, Si, A1 - 1)
+    if probs.device.type == "cpu":
+        return crf_beam_ids_plain(probs, init_states, lengths, thr, beam_size=K)
+    dev = probs.device
+    ids_log = torch.empty((T, K, B), dtype=torch.int32, device=dev)
+    fin = torch.empty((B,), dtype=torch.int32, device=dev)
+    err = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return ids_log, fin, err
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.ctc_crf_beam_ids_launch(
+            probs.data_ptr(), init_states.data_ptr(), lengths.data_ptr(),
+            float(thr), B, T, S, Si, A1 - 1, K,
+            ids_log.data_ptr(), fin.data_ptr(), err.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_for(rc, "CRF beam kernel")
+    launches["crf_beam"] += 1
+    return ids_log, fin, err
+
+
+def _crf_bounds(S, Si, A):
+    """The next state ``(state * A) % S + a`` is int32 arithmetic in the
+    kernel, for states below max(S, Si)."""
+    if S < 1 or Si < 1:
+        raise ValueError(f"S and Si must be >= 1, got {S}, {Si}")
+    if max(S, Si) * A + A > beam_fast._I32_MAX:
+        raise ValueError("max(S, Si) * A overflows the int32 transition states")
+
+
 def traceback_kernel(fin, ids_log, *, T, K, A):
     """Walk the [T, K, B] id log: ``(labels_rev [B, T], times_rev [B, T],
     count [B])``, all int32, emits leaf-first and -1 padded."""
@@ -147,6 +202,24 @@ def beam_search_kernel_batch(
         collapse_repeats=collapse_repeats,
     )
     T, A = probs.shape[1], probs.shape[2] - 1
+    labels_rev, times_rev, count = traceback_kernel(
+        fin, ids_log, T=T, K=int(beam_size), A=A
+    )
+    return {
+        "labels_rev": labels_rev,
+        "times_rev": times_rev,
+        "count": count,
+        "err": err,
+    }
+
+
+def crf_beam_search_kernel_batch(probs, init_states, lengths, thr, *, beam_size):
+    """The CRF beam kernel then the traceback kernel; the output dict of
+    ``beam_fast.crf_beam_search_fast_batch``."""
+    ids_log, fin, err = crf_beam_ids_kernel(
+        probs, init_states, lengths, thr, beam_size=beam_size
+    )
+    T, A = probs.shape[1], probs.shape[3] - 1
     labels_rev, times_rev, count = traceback_kernel(
         fin, ids_log, T=T, K=int(beam_size), A=A
     )

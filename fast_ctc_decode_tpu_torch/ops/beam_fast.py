@@ -1,6 +1,6 @@
 """Plain PyTorch CTC prefix beam search: O(beam) carry, no suffix tree.
 
-Port of the 1D part of ``fast_ctc_decode_tpu/ops/beam_fast.py``, batched
+Port of ``fast_ctc_decode_tpu/ops/beam_fast.py`` (1D and CRF), batched
 over reads with a Python loop over time.  It is at once ``engine="fast"``,
 the CPU path, and the plain version that the CUDA kernels in
 ``ops/beam_cuda.py`` are checked against bit for bit.
@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from .. import errors
+from .crf import check_init, init_beam
 
 ROOT = -1
 EMPTY = -2
@@ -79,14 +80,18 @@ class FastCarry(NamedTuple):
     h1: torch.Tensor  # [B, K] i64 (uint32 values) prefix hash lane 1
     h2: torch.Tensor  # [B, K] i64 (uint32 values) prefix hash lane 2
     lastlab: torch.Tensor  # [B, K] i64 last label (0-based), -1 for root
+    state: torch.Tensor  # [B, K] i64 CRF transition state (0 for plain CTC)
     lab: torch.Tensor  # [B, K] f32 label_prob
     gap: torch.Tensor  # [B, K] f32 gap_prob
     valid: torch.Tensor  # [B, K] bool
     err: torch.Tensor  # [B] i32
 
 
-def _init_fast_carry(B: int, K: int, device) -> FastCarry:
-    """Every read starts from the root alone in slot 0 (gap_prob 1)."""
+def _init_fast_carry(K: int, init_lab, init_gap, init_state) -> FastCarry:
+    """Every read starts from the root alone in slot 0; ``init_*`` are [B]
+    tensors (plain CTC: label_prob 0, gap_prob 1, state 0)."""
+    B = init_lab.shape[0]
+    device = init_lab.device
     is0 = (torch.arange(K, device=device) == 0).expand(B, K)
     zero_i64 = torch.zeros((B, K), dtype=torch.int64, device=device)
     return FastCarry(
@@ -94,26 +99,34 @@ def _init_fast_carry(B: int, K: int, device) -> FastCarry:
         h1=torch.where(is0, _SEED1, zero_i64),
         h2=torch.where(is0, _SEED2, zero_i64),
         lastlab=torch.full((B, K), -1, dtype=torch.int64, device=device),
-        lab=torch.zeros((B, K), dtype=torch.float32, device=device),
-        gap=torch.where(is0, 1.0, 0.0).to(torch.float32),
+        state=torch.where(is0, init_state.to(torch.int64)[:, None], zero_i64),
+        lab=torch.where(is0, init_lab[:, None], 0.0).to(torch.float32),
+        gap=torch.where(is0, init_gap[:, None], 0.0).to(torch.float32),
         valid=is0.clone(),
         err=torch.zeros((B,), dtype=torch.int32, device=device),
     )
 
 
-def _expand_merge_select(carry, t, p0, plab, is_rep, threshold, *, A, K):
+def _expand_merge_select(
+    carry, t, p0, plab, is_rep, new_state, threshold, *, A, K, crf=False
+):
     """Step core: expand tips, merge analytically, select top-K.
 
     Args:
-      p0: [B] blank probabilities; plab: [B, A] label probabilities.
+      p0: blank probabilities, [B] for plain CTC, [B, K] per tip for CRF.
+      plab: label probabilities, [B, A] for plain CTC, [B, K, A] for CRF.
       is_rep: [B, K, A] collapsed-repeat mask (all-False disables collapse).
+      new_state: [B, K, A] i64 state after emitting label a from tip k.
       threshold: 0-dim f32 tensor.
     Returns the next carry (err unchanged) and the [B] (nan, empty) flags.
     """
     B = p0.shape[0]
     dev = p0.device
     lbl = torch.arange(A, device=dev)
-    plab_k = plab[:, None, :]  # [B, 1, A]
+    if crf:
+        plab_k, p0_k = plab, p0
+    else:
+        plab_k, p0_k = plab[:, None, :], p0[:, None]  # [B, 1, A], [B, 1]
 
     # NaN must pass the label threshold check and fail the blank check,
     # as in the reference (src/search.rs:191, 201-203)
@@ -144,20 +157,24 @@ def _expand_merge_select(carry, t, p0, plab, is_rep, threshold, *, A, K):
     recv = torch.where(arrive, m_ext[..., None], 0.0).sum(dim=(1, 2))
     recv_any = arrive.flatten(1, 2).any(1)  # [B, K]
 
-    # stay: a collapsed repeat keeps the node via label_prob only; the
-    # is_rep gate makes collapse_repeats=False disable stays
-    safe_last = carry.lastlab.clamp(0, A - 1)
-    p_stay = torch.gather(plab, 1, safe_last)  # [B, K]
-    stay_push = (
-        carry.valid
-        & (carry.lastlab >= 0)
-        & ~(p_stay < threshold)
-        & is_rep.any(-1)
-    )
-    stay_lab = torch.where(stay_push, carry.lab * p_stay, 0.0)
+    if crf:  # CRF has no repeat collapse, hence no stay
+        stay_push = torch.zeros_like(carry.valid)
+        stay_lab = torch.zeros_like(carry.lab)
+    else:
+        # stay: a collapsed repeat keeps the node via label_prob only; the
+        # is_rep gate makes collapse_repeats=False disable stays
+        safe_last = carry.lastlab.clamp(0, A - 1)
+        p_stay = torch.gather(plab, 1, safe_last)  # [B, K]
+        stay_push = (
+            carry.valid
+            & (carry.lastlab >= 0)
+            & ~(p_stay < threshold)
+            & is_rep.any(-1)
+        )
+        stay_lab = torch.where(stay_push, carry.lab * p_stay, 0.0)
 
-    blank_push = carry.valid & (p0[:, None] > threshold)
-    blank_gap = torch.where(blank_push, lg * p0[:, None], 0.0)
+    blank_push = carry.valid & (p0_k > threshold)
+    blank_gap = torch.where(blank_push, lg * p0_k, 0.0)
 
     tip_lab = stay_lab + recv
     tip_gap = blank_gap
@@ -179,6 +196,7 @@ def _expand_merge_select(carry, t, p0, plab, is_rep, threshold, *, A, K):
     c_h1 = torch.cat([carry.h1, th1.flatten(1)], 1)
     c_h2 = torch.cat([carry.h2, th2.flatten(1)], 1)
     c_lastlab = torch.cat([carry.lastlab, lbl.repeat(K).expand(B, K * A)], 1)
+    c_state = torch.cat([carry.state, new_state.flatten(1)], 1)
 
     total = c_lab + c_gap
     cnt = c_valid.sum(1)
@@ -195,7 +213,7 @@ def _expand_merge_select(carry, t, p0, plab, is_rep, threshold, *, A, K):
     key = torch.where(
         c_valid, torch.where(total.isnan(), inf, total + 0.0), -inf
     )
-    sel = {f: [] for f in ("id", "h1", "h2", "ll", "lab", "gap", "v")}
+    sel = {f: [] for f in ("id", "h1", "h2", "ll", "st", "lab", "gap", "v")}
     top = None
     for _ in range(K):
         mx = key.amax(1, keepdim=True)
@@ -216,6 +234,7 @@ def _expand_merge_select(carry, t, p0, plab, is_rep, threshold, *, A, K):
         sel["h1"].append(pick(c_h1))
         sel["h2"].append(pick(c_h2))
         sel["ll"].append(pick(c_lastlab))
+        sel["st"].append(pick(c_state))
         sel["lab"].append(pick(c_lab) + 0.0)
         sel["gap"].append(pick(c_gap) + 0.0)
         sel["v"].append(slot_valid)
@@ -228,6 +247,7 @@ def _expand_merge_select(carry, t, p0, plab, is_rep, threshold, *, A, K):
         h1=torch.stack(sel["h1"], 1),
         h2=torch.stack(sel["h2"], 1),
         lastlab=torch.stack(sel["ll"], 1),
+        state=torch.stack(sel["st"], 1),
         # true division: a reciprocal-multiply rounds differently
         lab=torch.where(v_k, torch.stack(sel["lab"], 1) / top, 0.0),
         gap=torch.where(v_k, torch.stack(sel["gap"], 1) / top, 0.0),
@@ -267,19 +287,39 @@ def _beam_fast_step(carry, p, t, *, A, K, collapse, lengths, threshold):
             (p.shape[0], K, A), dtype=torch.bool, device=p.device
         )
     next_c, nan_flag, empty_flag = _expand_merge_select(
-        carry, t, p0, plab, is_rep, threshold, A=A, K=K
+        carry, t, p0, plab, is_rep, torch.zeros_like(is_rep, dtype=torch.int64),
+        threshold, A=A, K=K,
     )
     return _apply_step(carry, next_c, nan_flag, empty_flag, active), carry.id
 
 
-def _check_batch(probs, lengths, beam_size):
+def _crf_fast_step(carry, p, t, *, A, S, K, lengths, threshold):
+    """One CRF time step for every read; ``p`` is the [B, S, A+1] frame."""
+    active = (t < lengths) & (carry.err == errors.OK)
+    B = p.shape[0]
+    # each tip's row probs[b, t, state_k, :]; the JAX engine selects it as a
+    # one-hot masked sum, which turns a -0.0 entry into +0.0: so does +0.0
+    rows = carry.state.clamp(0, S - 1)[:, :, None].expand(B, K, A + 1)
+    prow = p.gather(1, rows) + 0.0  # [B, K, A+1]
+    lbl = torch.arange(A, device=p.device)
+    is_rep = torch.zeros((B, K, A), dtype=torch.bool, device=p.device)
+    new_state = (carry.state[:, :, None] * A) % S + lbl
+    next_c, nan_flag, empty_flag = _expand_merge_select(
+        carry, t, prow[:, :, 0], prow[:, :, 1:], is_rep, new_state, threshold,
+        A=A, K=K, crf=True,
+    )
+    return _apply_step(carry, next_c, nan_flag, empty_flag, active), carry.id
+
+
+def _check_batch(probs, lengths, beam_size, crf=False):
     if not isinstance(probs, torch.Tensor) or probs.dtype != torch.float32:
         raise TypeError("probs must be a float32 torch.Tensor")
-    if probs.dim() != 3 or probs.shape[2] < 2:
-        raise ValueError(f"probs must be [B, T, A+1] with A >= 1, got {tuple(probs.shape)}")
+    layout = "[B, T, S, A+1]" if crf else "[B, T, A+1]"
+    if probs.dim() != (4 if crf else 3) or probs.shape[-1] < 2:
+        raise ValueError(f"probs must be {layout} with A >= 1, got {tuple(probs.shape)}")
     if int(beam_size) < 1:
         raise ValueError("beam_size must be >= 1")
-    B, T, A1 = probs.shape
+    T, A1 = probs.shape[1], probs.shape[-1]
     if T * int(beam_size) * (A1 - 1) > _I32_MAX:
         raise ValueError("T * beam_size * A overflows the int32 node ids")
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=probs.device)
@@ -309,7 +349,13 @@ def beam_search_ids_batch(
     K = int(beam_size)
     thr = torch.tensor(float(beam_cut_threshold), dtype=torch.float32, device=probs.device)
 
-    carry = _init_fast_carry(B, K, probs.device)
+    dev = probs.device
+    carry = _init_fast_carry(
+        K,
+        torch.zeros((B,), dtype=torch.float32, device=dev),
+        torch.ones((B,), dtype=torch.float32, device=dev),
+        torch.zeros((B,), dtype=torch.int64, device=dev),
+    )
     ids_log = torch.empty((T, K, B), dtype=torch.int32, device=probs.device)
     for t in range(T):
         carry, ids = _beam_fast_step(
@@ -338,6 +384,64 @@ def beam_search_fast_batch(
         beam_size=beam_size, collapse_repeats=collapse_repeats,
     )
     T, A = probs.shape[1], probs.shape[2] - 1
+    labels_rev, times_rev, count = _traceback_scan_batch(
+        fin, ids_log, T, int(beam_size), A
+    )
+    return {
+        "labels_rev": labels_rev,
+        "times_rev": times_rev,
+        "count": count,
+        "err": err,
+    }
+
+
+def crf_beam_search_ids_batch(
+    probs: torch.Tensor,
+    init_states: torch.Tensor,
+    lengths,
+    beam_cut_threshold,
+    *,
+    beam_size: int,
+):
+    """CRF forward beam over [B, T, S, A+1] posteriors, [B, Si] init states
+    and [B] lengths (src/search.rs:38-157 of the reference).
+
+    Returns ``(ids_log [T, K, B], fin [B], err [B])``, all int32, as
+    ``beam_search_ids_batch`` does: node ids are coded the same way, so the
+    1D traceback serves both.  The initial beam is (label_prob =
+    max(init), gap_prob = init[0], state = argmax(init), first max wins).
+    """
+    lengths = _check_batch(probs, lengths, beam_size, crf=True)
+    B, T, S, A1 = probs.shape
+    check_init(init_states, B, probs.device)
+    A = A1 - 1
+    K = int(beam_size)
+    dev = probs.device
+    thr = torch.tensor(float(beam_cut_threshold), dtype=torch.float32, device=dev)
+    carry = _init_fast_carry(K, *init_beam(init_states))
+    ids_log = torch.empty((T, K, B), dtype=torch.int32, device=dev)
+    for t in range(T):
+        carry, ids = _crf_fast_step(
+            carry, probs[:, t], t, A=A, S=S, K=K, lengths=lengths, threshold=thr
+        )
+        ids_log[t] = ids.T
+    return ids_log, carry.id[:, 0].contiguous(), carry.err
+
+
+def crf_beam_search_fast_batch(
+    probs: torch.Tensor,
+    init_states: torch.Tensor,
+    lengths,
+    beam_cut_threshold,
+    *,
+    beam_size: int,
+):
+    """Batched CRF fast beam: forward beam plus the traceback; the output
+    dict of ``beam_search_fast_batch``."""
+    ids_log, fin, err = crf_beam_search_ids_batch(
+        probs, init_states, lengths, beam_cut_threshold, beam_size=beam_size
+    )
+    T, A = probs.shape[1], probs.shape[3] - 1
     labels_rev, times_rev, count = _traceback_scan_batch(
         fin, ids_log, T, int(beam_size), A
     )

@@ -1,25 +1,43 @@
-"""Batched beam decode pipeline on one device.
+"""Batched decode pipelines on one device: 1D beam, viterbi and CRF beam.
 
-Reads arrive as padded posterior batches ``[B, T, A+1]`` with per-read
-lengths, are decoded on the caller's ``device``, and only fixed-width
-arrays plus counters come back to the host, where ragged strings are
-assembled.  Port of the 1D beam part of
+Reads arrive as padded posterior batches (``[B, T, A+1]``; CRF
+``[B, T, S, A+1]`` plus ``[B, Si]`` init states) with per-read lengths,
+are decoded on the caller's ``device``, and only fixed-width arrays plus
+counters come back to the host, where ragged strings are assembled.  Port
+of the 1D beam, viterbi and CRF parts of
 ``fast_ctc_decode_tpu/parallel/pipeline.py``: the JAX package's data mesh
 is replaced by an explicit ``device`` (so B need not divide a device
 count); running on several cards is later work.
+
+Engines of the beam decoders:
+  - "cuda": the hand-written hash-identity kernels (``ops/beam_cuda.py``);
+    CUDA devices only.
+  - "fast": the plain PyTorch hash-identity engine (``ops/beam_fast.py``)
+    on any device; bit-identical to "cuda".
+  - "exact": the suffix-tree engine, bit-exact path and tie parity with
+    the reference: the hand-written kernel (``ops/beam_exact_cuda.py``) on a
+    CUDA device, the plain engine (``ops/beam.py`` / ``ops/crf.py``) on the
+    CPU.  Its tree budget is ``max_nodes`` (default: the worst case), and a
+    read that needs more stops with NODE_OVERFLOW; nothing re-runs it.
+  - None (default): "cuda" on a CUDA device, "fast" on the CPU.
+A CUDA tensor outside a kernel's bounds (beam_size <= 16, A+1 <= 8) raises.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import errors
 from ..alphabet import normalize_alphabet
+from ..ops import beam as beam_ops
 from ..ops import beam_cuda
+from ..ops import beam_exact_cuda
 from ..ops import beam_fast as beam_fast_ops
+from ..ops import crf as crf_ops
+from ..ops import viterbi as viterbi_ops
 
 ENGINES = ("cuda", "fast", "exact")
 
@@ -29,29 +47,50 @@ def _resolve(engine: Optional[str], device: torch.device) -> str:
         engine = "cuda" if device.type == "cuda" else "fast"
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "exact":
-        raise ValueError(
-            "engine 'exact' is not ported yet (ROADMAP.md queue 1 item 6, "
-            "queue 2 item 3)"
-        )
     if engine == "cuda" and device.type != "cuda":
         raise ValueError(f"engine 'cuda' needs a CUDA device, got {device}")
     return engine
 
 
-def _decode_arrays(engine, device, probs, lengths, threshold, beam_size, collapse):
+def _decode_arrays(
+    engine, device, probs, lengths, threshold, beam_size, collapse, max_nodes=None
+):
     """Move a batch to ``device`` and run ``engine`` on it: the raw dict."""
+    probs = torch.as_tensor(probs, dtype=torch.float32, device=device).contiguous()
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=device).contiguous()
+    kw = dict(beam_size=int(beam_size), collapse_repeats=bool(collapse))
+    if engine == "exact":
+        if max_nodes is None:
+            max_nodes = beam_ops.default_max_nodes(probs.shape[1], beam_size, probs.shape[2] - 1)
+        fn = (
+            beam_exact_cuda.beam_search_exact_kernel_batch
+            if device.type == "cuda"
+            else beam_ops.beam_search_device_batch
+        )
+        return fn(probs, lengths, np.float32(threshold), max_nodes=int(max_nodes), **kw)
     fn = (
         beam_cuda.beam_search_kernel_batch
         if engine == "cuda"
         else beam_fast_ops.beam_search_fast_batch
     )
-    probs = torch.as_tensor(probs, dtype=torch.float32, device=device)
-    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=device)
-    return fn(
-        probs.contiguous(), lengths.contiguous(), np.float32(threshold),
-        beam_size=int(beam_size), collapse_repeats=bool(collapse),
-    )
+    return fn(probs, lengths, np.float32(threshold), **kw)
+
+
+def _assemble(out, alphabet) -> List[Tuple[str, List[int], int]]:
+    """A beam result dict (host numpy arrays) -> [(sequence, path, err)].
+    Reads that failed keep their status code and an empty result."""
+    from ..native import detokenize_batch
+
+    counts = np.where(out["err"] == errors.OK, out["count"], 0).astype(np.int32)
+    seqs = detokenize_batch(out["labels_rev"], counts, alphabet[1:], reverse=True)
+    res = []
+    for seq, times_rev, n, err in zip(seqs, out["times_rev"], counts, out["err"]):
+        err = int(err)
+        if err != errors.OK:
+            res.append(("", [], err))
+            continue
+        res.append((seq, times_rev[: int(n)][::-1].tolist(), errors.OK))
+    return res
 
 
 class BatchBeamDecoder:
@@ -61,14 +100,12 @@ class BatchBeamDecoder:
     flag.  ``decode`` accepts [B, T, A+1] f32 posteriors + [B] lengths
     (numpy arrays or tensors) and moves them to ``device``.
 
-    ``engine`` selects the device code:
-      - "cuda": the hand-written kernels (ops/beam_cuda.py); CUDA devices only.
-      - "fast": the plain PyTorch hash-identity engine (ops/beam_fast.py),
-        on any device; bit-identical to "cuda".
-      - "exact": not ported yet, raises ValueError.
-      - None (default): "cuda" on a CUDA device, "fast" on the CPU.
-    Both engines are sequence-exact against the reference; ``path`` entries
-    of pruned-and-re-derived prefixes report their latest creation time.
+    ``engine`` selects the device code (see the module docstring):
+    "cuda", "fast", "exact" or None.  All are sequence-exact against the
+    reference; with "cuda"/"fast", ``path`` entries of pruned-and-re-derived
+    prefixes report their latest creation time, "exact" their first.
+    ``max_nodes`` is the exact engine's per-read tree budget (default: the
+    worst case for T); the other engines ignore it, as in the JAX package.
     """
 
     def __init__(
@@ -78,6 +115,7 @@ class BatchBeamDecoder:
         beam_size: int = 5,
         beam_cut_threshold: float = 0.0,
         collapse_repeats: bool = True,
+        max_nodes: Optional[int] = None,
         engine: Optional[str] = None,
         device="cpu",
     ):
@@ -88,13 +126,20 @@ class BatchBeamDecoder:
         self.collapse = bool(collapse_repeats)
         self.device = torch.device(device)
         self.engine = _resolve(engine, self.device)
+        self.max_nodes = None
+        if self.engine == "exact":
+            self.max_nodes = int(
+                max_nodes
+                if max_nodes is not None
+                else beam_ops.default_max_nodes(self.T, self.beam_size, len(self.alphabet) - 1)
+            )
 
     def decode_arrays(self, probs, lengths):
         """Device decode only: the fixed-width result dict (labels_rev,
         times_rev, count, err; int32 tensors on ``device``)."""
         return _decode_arrays(
             self.engine, self.device, probs, lengths, self.threshold,
-            self.beam_size, self.collapse,
+            self.beam_size, self.collapse, self.max_nodes,
         )
 
     def decode(self, probs, lengths) -> List[Tuple[str, List[int], int]]:
@@ -103,25 +148,138 @@ class BatchBeamDecoder:
         bad read cannot abort a batch.  String assembly uses the native C++
         detokenizer when available.  Per-stage wall times land in
         ``utils.profiling.METRICS``."""
-        from ..native import detokenize_batch
         from ..utils import profiling
 
         B = int(probs.shape[0])
         with profiling.stage("beam.device", reads=B):
             out = {k: v.cpu().numpy() for k, v in self.decode_arrays(probs, lengths).items()}
         with profiling.stage("beam.detok"):
-            counts = np.where(out["err"] == errors.OK, out["count"], 0).astype(np.int32)
-            seqs = detokenize_batch(
-                out["labels_rev"], counts, self.alphabet[1:], reverse=True
+            return _assemble(out, self.alphabet)
+
+
+class BatchViterbiDecoder:
+    """Batched viterbi decoder on one device (argmax, emission and run-mean
+    qualities on the device; strings on the host).
+
+    Run means are f32 scatter-adds: in frame order on the CPU (equal to the
+    JAX package's ``segment_sum``), in no fixed order on CUDA, where a
+    phred int may differ by 1 from the CPU run.  Tokens, paths and counts
+    are exact everywhere.
+    """
+
+    def __init__(
+        self,
+        alphabet,
+        T: int,
+        collapse_repeats: bool = True,
+        qscale: float = 1.0,
+        qbias: float = 0.0,
+        device="cpu",
+    ):
+        self.alphabet = normalize_alphabet(alphabet)
+        self.T = int(T)
+        self.collapse = bool(collapse_repeats)
+        self.qscale = np.float32(qscale)
+        self.qbias = np.float32(qbias)
+        self.device = torch.device(device)
+
+    def decode_arrays(self, probs, lengths):
+        """Device decode only: tokens, path, qints, n (tensors on ``device``)."""
+        probs = torch.as_tensor(probs, dtype=torch.float32, device=self.device)
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
+        return viterbi_ops.viterbi_device_batch(
+            probs, lengths, self.qscale, self.qbias, collapse_repeats=self.collapse
+        )
+
+    def decode(self, probs, lengths, qstring: bool = False):
+        """Returns [(sequence, path)] per read (sequence + quality string
+        when ``qstring``)."""
+        from ..native import detokenize_batch, qstrings_batch
+
+        out = {k: v.cpu().numpy() for k, v in self.decode_arrays(probs, lengths).items()}
+        counts = out["n"].astype(np.int32)
+        # viterbi tokens are 1-based alphabet rows: index the full alphabet
+        seqs = detokenize_batch(out["tokens"], counts, self.alphabet, reverse=False)
+        if qstring:
+            qstrs = qstrings_batch(out["qints"].astype(np.uint32), counts)
+            seqs = [s + q for s, q in zip(seqs, qstrs)]
+        return [
+            (seq, path[: int(n)].tolist()) for seq, path, n in zip(seqs, out["path"], counts)
+        ]
+
+
+class BatchCrfBeamDecoder:
+    """Batched CRF prefix beam search on one device.
+
+    Accepts [B, T, S, A+1] f32 posteriors, [B, Si] init states and [B]
+    lengths; sequence-exact against the reference crf_beam_search.
+    ``engine``: "cuda" (the hand-written CRF kernel; CUDA only), "fast"
+    (plain torch, any device), "exact" (bit-exact path/tie parity: the
+    exact kernel on CUDA, the plain tree engine on the CPU, with the worst
+    case tree budget) or None ("cuda" on a CUDA device, "fast" on the CPU).
+    The JAX package's TPU-memory rule for picking its kernel (n_state <=
+    256) has no counterpart here: the kernels take any S, and raise only
+    beyond beam_size 16 or A+1 = 8.
+    """
+
+    def __init__(
+        self,
+        alphabet,
+        T: int,
+        n_state: int,
+        beam_size: int = 5,
+        beam_cut_threshold: float = 0.0,
+        engine: Optional[str] = None,
+        device="cpu",
+    ):
+        self.alphabet = normalize_alphabet(alphabet)
+        self.T = int(T)
+        self.n_state = int(n_state)
+        self.beam_size = int(beam_size)
+        self.threshold = np.float32(beam_cut_threshold)
+        self.device = torch.device(device)
+        self.engine = _resolve(engine, self.device)
+        self.max_nodes = None
+        if self.engine == "exact":
+            self.max_nodes = beam_ops.default_max_nodes(
+                self.T, self.beam_size, len(self.alphabet) - 1
             )
-            res = []
-            for seq, times_rev, n, err in zip(seqs, out["times_rev"], counts, out["err"]):
-                err = int(err)
-                if err != errors.OK:
-                    res.append(("", [], err))
-                    continue
-                res.append((seq, times_rev[: int(n)][::-1].tolist(), errors.OK))
-        return res
+
+    def decode_arrays(self, probs, init_states, lengths):
+        """Device decode only: the fixed-width result dict (labels_rev,
+        times_rev, count, err; int32 tensors on ``device``)."""
+        dev = self.device
+        probs = torch.as_tensor(probs, dtype=torch.float32, device=dev).contiguous()
+        init = torch.as_tensor(init_states, dtype=torch.float32, device=dev).contiguous()
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev).contiguous()
+        if self.engine == "exact":
+            fn = (
+                beam_exact_cuda.crf_beam_search_exact_kernel_batch
+                if dev.type == "cuda"
+                else crf_ops.crf_beam_search_device_batch
+            )
+            return fn(
+                probs, init, lengths, self.threshold, beam_size=self.beam_size,
+                max_nodes=self.max_nodes,
+            )
+        fn = (
+            beam_cuda.crf_beam_search_kernel_batch
+            if self.engine == "cuda"
+            else beam_fast_ops.crf_beam_search_fast_batch
+        )
+        return fn(probs, init, lengths, self.threshold, beam_size=self.beam_size)
+
+    def decode(self, probs, init_states, lengths) -> List[Tuple[str, List[int], int]]:
+        """Returns [(sequence, path, err_code)] per read; per-stage wall
+        times land in ``utils.profiling.METRICS``."""
+        from ..utils import profiling
+
+        B = int(probs.shape[0])
+        with profiling.stage("crf.device", reads=B):
+            out = self.decode_arrays(probs, init_states, lengths)
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+        with profiling.stage("crf.detok"):
+            return _assemble(out, self.alphabet)
 
 
 def decode_and_count(
@@ -266,6 +424,86 @@ def decode_many(
             len(reads),
             {k: round(v, 3) for k, v in profiling.METRICS.stages.items()},
         )
+        return ckpt.results_in_order(len(reads))
+    finally:
+        ckpt.close()
+
+
+def decode_many_crf(
+    reads: Sequence,
+    alphabet,
+    *,
+    beam_size: int = 5,
+    beam_cut_threshold: float = 0.0,
+    batch_size: int = 256,
+    engine: Optional[str] = None,
+    device="cpu",
+    checkpoint_path: Optional[str] = None,
+) -> List[Tuple[str, List[int], int]]:
+    """Checkpointable streaming CRF decode: ``decode_many`` for the CRF
+    family.  ``reads`` entries are ``(posteriors [T, S, A+1], init_state
+    [S])``; variable T rides power-of-two buckets (padded frames are masked
+    by per-read lengths, padding rows decode empty).  The checkpoint's
+    ``meta`` keys are the JAX package's, with the engine resolved for
+    ``device``, so a JAX-written checkpoint of the same engine resumes here.
+    Returns ``[(sequence, path, err_code)]`` in input order."""
+    from ..utils import profiling
+    from ..utils.checkpoint import DecodeCheckpoint
+
+    if not reads:
+        return []
+    dev = torch.device(device)
+    engine = _resolve(engine, dev)
+    edges = _auto_bucket_edges([r[0].shape[0] for r in reads])
+    S = reads[0][0].shape[1]
+    meta = {
+        "crf": True,
+        "bucket_edges": edges,
+        "n_state": int(S),
+        "beam_size": int(beam_size),
+        "beam_cut_threshold": float(beam_cut_threshold),
+        "engine": engine,
+    }
+    ckpt = DecodeCheckpoint.load_or_create(checkpoint_path, meta)
+    try:
+        if ckpt.cursor >= len(reads):
+            return ckpt.results_in_order(len(reads))
+
+        buckets: Dict[int, List[int]] = {}
+        for i, r in enumerate(reads):
+            e = next(e for e in edges if e >= r[0].shape[0])
+            buckets.setdefault(e, []).append(i)
+
+        A1 = reads[0][0].shape[2]
+        bs = max(int(batch_size), 1)
+        for edge, idxs in sorted(buckets.items()):
+            todo = [i for i in idxs if i not in ckpt.done]
+            if not todo:
+                continue
+            dec = BatchCrfBeamDecoder(
+                alphabet, T=edge, n_state=S, beam_size=beam_size,
+                beam_cut_threshold=beam_cut_threshold, engine=engine, device=dev,
+            )
+            profiling.log.info(
+                "decode_many_crf: bucket T<=%d, %d reads, batch=%d",
+                edge, len(todo), bs,
+            )
+            for s in range(0, len(todo), bs):
+                chunk = todo[s : s + bs]
+                n = len(chunk)
+                with profiling.stage("decode_many_crf.pad"):
+                    probs = np.zeros((bs, edge, S, A1), np.float32)
+                    inits = np.zeros((bs, S), np.float32)
+                    inits[:, 0] = 1.0  # padding rows decode empty (length 0)
+                    lengths = np.zeros((bs,), np.int32)
+                    for j, i in enumerate(chunk):
+                        p, st = reads[i][0], reads[i][1]
+                        probs[j, : p.shape[0]] = p
+                        inits[j] = st
+                        lengths[j] = p.shape[0]
+                res = dec.decode(probs, inits, lengths)[:n]
+                with profiling.stage("decode_many_crf.checkpoint"):
+                    ckpt.record(chunk, res)
         return ckpt.results_in_order(len(reads))
     finally:
         ckpt.close()

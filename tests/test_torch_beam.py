@@ -105,6 +105,21 @@ def test_plain_engine_equals_jax_fast(name):
         assert list(got["count"][[0, 2]]) == [0, 0]
 
 
+@pytest.mark.parametrize("thr", [0.0, 0.1])
+def test_plain_engine_equals_jax_fast_on_inf_and_nan(thr):
+    # +-inf and NaN entries: the plain engine (and so the CUDA kernel held
+    # to it on the card) follows the JAX scan engine field for field
+    rng = np.random.RandomState(17)
+    for trial in range(10):
+        probs = rand_batch(4, 12, 5, 100 + trial)
+        u = rng.rand(*probs.shape)
+        probs[u < 0.03] = np.inf
+        probs[(u >= 0.03) & (u < 0.05)] = -np.inf
+        probs[(u >= 0.05) & (u < 0.06)] = np.nan
+        lengths = np.full((4,), 12, np.int32)
+        assert_same(run_jax(probs, lengths, thr), run_torch(probs, lengths, thr))
+
+
 def test_plain_engine_equals_interpret_pallas():
     # the JAX package's own CPU form of the fused kernel (interpret mode)
     probs, lengths, thr, K, collapse = _case("ragged")

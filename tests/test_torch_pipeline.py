@@ -108,7 +108,7 @@ def test_decode_and_count_is_a_local_sum():
 
 @pytest.mark.parametrize(
     "engine, device",
-    [("cuda", "cpu"), ("exact", "cpu"), ("pallas", "cpu")],
+    [("cuda", "cpu"), ("pallas", "cuda"), ("pallas", "cpu")],
 )
 def test_engine_choice_raises(engine, device):
     with pytest.raises(ValueError):
@@ -146,6 +146,14 @@ def test_port_imports_no_jax():
     code = (
         "import sys, numpy as np\n"
         "import fast_ctc_decode_tpu_torch as m\n"
+        "from fast_ctc_decode_tpu_torch import api\n"
+        "from fast_ctc_decode_tpu_torch.ops import beam, crf, viterbi, beam_exact_cuda\n"
+        "from fast_ctc_decode_tpu_torch.parallel import pipeline\n"
+        "c = np.random.RandomState(1).rand(12, 4, 5).astype(np.float32)\n"
+        "s = np.full((4,), 0.25, np.float32)\n"
+        "assert api.beam_search(c[:, 0], 'NACGT', 5, 0.1)[0]\n"
+        "assert api.crf_beam_search(c, s, 'NACGT', 5, 0.01)[0]\n"
+        "assert api.viterbi_search(c[:, 0], 'NACGT')[0] and api.crf_greedy_search(c, s, 'NACGT')\n"
         "x = np.random.RandomState(0).rand(2, 20, 5).astype(np.float32)\n"
         "r = m.BatchBeamDecoder('NACGT', T=20, beam_cut_threshold=0.1).decode(x, np.array([20, 9]))\n"
         "assert len(r) == 2 and r[0][2] == 0\n"
