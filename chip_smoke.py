@@ -34,19 +34,43 @@ Phases, each of which raises on failure (exit code non-zero):
      equal to the batch results; ``decode_many_crf`` resumed from a
      checkpoint equal to an uninterrupted run;
   7. times the new kernels against their plain versions (CUDA events) and
-     the new decoders' ``decode_arrays`` / ``decode`` (wall), medians of 5.
+     the new decoders' ``decode_arrays`` / ``decode`` (wall), medians of 5;
+  8. holds the duplex slot kernel and the exact duplex tree kernel (plain
+     and CRF) to their plain versions on the card, 0 differing entries of
+     the output dict: full range, diagonal, dipping upper bound, invalid
+     envelope, zero-probability and NaN rows, ragged and zero lengths, beam 1
+     and the widest beam, a small ``max_nodes``, CRF S=16 and S=9, per-pair
+     envelopes; inputs outside a kernel's bounds raise;
+  9. drives the duplex paths at full width (T1 = T2 = 500, B = 256, beam 5,
+     cut 0.0): ``BatchDuplexDecoder`` auto on the full range (slot kernel),
+     ``engine="cuda"`` on a diagonal envelope (slot kernel), auto on the
+     diagonal (tree kernel), ``BatchCrfDuplexDecoder`` S=16 auto on the
+     diagonal (CRF tree kernel) and on the full range (the plain CRF slot
+     engine on the card), each with its launch counters and 4 sampled pairs
+     equal to tests/oracle.py (not the slot kernel on a moving window, whose
+     divergence from the reference is documented); the oracle runs in a
+     process pool while the card works;
+  10. resumes ``decode_many_duplex`` over ~200 pairs of 100-600 frames with
+     per-pair diagonal envelopes from a checkpoint;
+  11. the single-read duplex API on the card equals the batch results;
+  12. times each duplex kernel beside its plain version on the same
+     full-width shape (CUDA events; the plain versions once, they take
+     tens of seconds) and the duplex decoders' ``decode_arrays`` / ``decode``,
+     and holds the full-width kernel outputs to the plain ones.
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside
 the repository, it exits non-zero and prints no result.
 """
 
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -57,6 +81,10 @@ T_CRF, S_CRF, B_CRF, B_CRF_EXACT = 400, 64, 1024, 256
 B_VITERBI = 8192  # viterbi at T_MAIN
 REPEATS = 5
 FIELDS = ("labels_rev", "times_rev", "count", "err")
+B_DUP, T_DUP, S_DUP, W_DIAG, DUP_THR = 256, 500, 16, 40, 0.0  # duplex full width
+DUP_FIELDS = ("labels_rev", "count", "err")
+ORACLE_SAMPLES = 4
+TESTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 
 
 def log(msg):
@@ -216,11 +244,434 @@ def crf_cases():
     return cases
 
 
+def make_pairs(B, T1, T2, A1, seed):
+    """Duplex read pairs: two batches of L2-normalised posteriors."""
+    return make_reads(B, T1, A1, seed), make_reads(B, T2, A1, seed + 1)
+
+
+def make_crf_pairs(B, T1, T2, S, A1, seed):
+    """CRF duplex pairs: (net1, init1, net2, init2)."""
+    n1, i1 = make_crf_reads(B, T1, S, A1, seed)
+    n2, i2 = make_crf_reads(B, T2, S, A1, seed + 1)
+    return n1, i1, n2, i2
+
+
+def oracle_job(job):
+    """One tests/oracle.py duplex decode (run in a worker process)."""
+    sys.path.insert(0, TESTS_DIR)
+    import oracle
+
+    kind, args, kw = job
+    fn = oracle.beam_search_duplex if kind == "plain" else oracle.crf_beam_search_duplex
+    return fn(*args, **kw)
+
+
+def once_event_ms(fn, torch):
+    """Device time of one call of ``fn`` in ms between two CUDA events (for
+    the plain duplex engines, whose one call takes tens of seconds)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
 def seq_path(out, i):
     """(sequence, path) of read i of a result dict on any device."""
     n = int(out["count"][i])
     labels = out["labels_rev"][i, :n].tolist()[::-1]
     return "".join(ALPHABET[l + 1] for l in labels), out["times_rev"][i, :n].tolist()[::-1]
+
+
+def duplex_inputs(torch, dev, n1, n2, envs, thr, crf=None, tree=False, K=BEAM, lengths=None):
+    """Prepare a duplex batch as every duplex entry point does
+    (``pipeline.prep_duplex_batch``) and put it on ``dev``.  Returns (l1, l2,
+    root_gap, lo, hi, thr, init_states, lengths, static) with ``static`` the
+    engine's static arguments: W, needs_ext, max_nodes (tree) or needs_ext
+    (slot)."""
+    from fast_ctc_decode_tpu_torch.parallel.pipeline import prep_duplex_batch
+
+    init1, init2 = (None, None) if crf is None else crf
+    b = prep_duplex_batch(n1, n2, envs, lengths, thr, T1=n1.shape[1], T2=n2.shape[1],
+                          init1=init1, init2=init2)
+    if tree:
+        static = dict(W=b.W, needs_ext=b.tree_needs_ext, max_nodes=b.max_nodes(K))
+    else:
+        static = dict(needs_ext=b.needs_ext)
+    return (*b.tensors(dev), static)
+
+
+def duplex_parity_cases():
+    """(name, kind, inputs, kw): the CPU tests' kinds of input for the duplex
+    kernels; kind "plain" runs the slot and the tree kernel, "crf" the CRF
+    tree kernel, "tree" only the tree kernel (outside the slot class)."""
+    from duplex_helpers import diag_env
+
+    T1, T2 = 16, 18
+    full = np.stack([np.zeros(T1, np.int64), np.full(T1, T2, np.int64)], 1)
+    diag = diag_env(T1, T2, 3)
+    dip = diag.copy()
+    dip[6:9, 1] -= 2  # the upper bound dips, then recovers
+    dip[:, 1] = np.maximum(dip[:, 1], dip[:, 0] + 1)
+    bad = diag.copy()
+    bad[5, 1] = bad[5, 0]
+    back = diag_env(T1, T2, 4)
+    back[9, 0] = max(back[9, 0] - 2, 0)
+    n1, n2 = make_pairs(3, T1, T2, 5, 60)
+    zer1, zer2 = n1.copy(), n2.copy()
+    zer1[0, 3:5] = 0.0
+    zer2[2, 5:8] = 0.0
+    nan1, nan2 = n1.copy(), n2.copy()
+    nan1[1, 4] = np.nan
+    nan2[2, 6] = np.nan
+    per = np.stack([diag_env(T1, T2, w) for w in (2, 3, 5)])
+    c16 = make_crf_pairs(3, 12, 14, 16, 5, 61)
+    c9 = make_crf_pairs(3, 12, 14, 9, 4, 62)
+    d12 = diag_env(12, 14, 3)
+    full12 = np.stack([np.zeros(12, np.int64), np.full(12, 14, np.int64)], 1)
+    base = dict(thr=0.0, K=5, collapse=True, lengths=None, N=None)
+    cases = [
+        ("full", "plain", (n1, n2, full), {}),
+        ("diag", "plain", (n1, n2, diag), {}),
+        ("dipping_upper", "plain", (n1, n2, dip), {}),
+        ("invalid_envelope", "plain", (n1, n2, bad), {}),
+        ("zero_rows", "plain", (zer1, zer2, diag), {}),
+        ("nan_rows", "plain", (nan1, nan2, full), {}),
+        ("ragged_zero_lengths", "plain", (n1, n2, diag), dict(lengths=[16, 0, 7])),
+        ("beam1", "plain", (n1, n2, diag), dict(K=1)),
+        ("beam8_widest", "plain", (n1, n2, diag), dict(K=8, thr=0.05)),
+        ("per_pair_collapse_off", "plain", (n1, n2, per), dict(collapse=False, thr=0.1)),
+        ("max_nodes20", "tree", (n1, n2, diag), dict(N=20)),
+        ("lower_steps_back", "tree", (n1, n2, back), {}),
+        ("crf_S16_diag", "crf", (c16, d12), {}),
+        ("crf_S16_full", "crf", (c16, full12), {}),
+        ("crf_S9_A3", "crf", (c9, d12), {}),
+    ]
+    return [(name, kind, inputs, {**base, **kw}) for name, kind, inputs, kw in cases]
+
+
+def duplex_paths(torch, dn1, dn2, c1, i1, c2, i2, diag, log_counts):
+    """Phase 9's five full-width duplex paths, each between counter reads."""
+    from fast_ctc_decode_tpu_torch import BatchCrfDuplexDecoder, BatchDuplexDecoder
+
+    def drive(name, fn, kernels, none_of=()):
+        torch.cuda.synchronize()
+        log_counts.reset()
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+        got = log_counts.read()
+        log(f"{name}: {len(res)} pairs decoded in {wall:.3f} s (first call), launches "
+            f"{ {k: got[k] for k in (*kernels, *none_of)} }")
+        if min((got[k] for k in kernels), default=1) < 1:
+            raise AssertionError(f"{name}: a kernel of the path never launched: {got}")
+        if any(got[k] for k in none_of):
+            raise AssertionError(f"{name}: an unexpected kernel launched: {got}")
+        if len(res) != B_DUP or any(r[1] != 0 for r in res):
+            raise AssertionError(f"{name}: status codes not all OK")
+        return res, {k: got[k] for k in kernels}, wall
+
+    kw = dict(beam_size=BEAM, beam_cut_threshold=DUP_THR, device="cuda")
+    dec = BatchDuplexDecoder(ALPHABET, T1=T_DUP, T2=T_DUP, **kw)
+    dec_cuda = BatchDuplexDecoder(ALPHABET, T1=T_DUP, T2=T_DUP, engine="cuda", **kw)
+    crf_dec = BatchCrfDuplexDecoder(ALPHABET, T1=T_DUP, T2=T_DUP, n_state=S_DUP, **kw)
+    all_dup = ("duplex", "duplex_exact", "duplex_exact_crf")
+    res_full, l_full, _ = drive("duplex auto full range (slot kernel)",
+                                lambda: dec.decode(dn1, dn2), ["duplex", "traceback"],
+                                ("duplex_exact",))
+    res_cd, l_cd, _ = drive("duplex engine=cuda diagonal (slot kernel)",
+                            lambda: dec_cuda.decode(dn1, dn2, envelopes=diag),
+                            ["duplex", "traceback"], ("duplex_exact",))
+    res_diag, l_diag, _ = drive("duplex auto diagonal (tree kernel)",
+                                lambda: dec.decode(dn1, dn2, envelopes=diag), ["duplex_exact"],
+                                ("duplex",))
+    res_cdiag, l_cdiag, _ = drive("CRF duplex auto diagonal (CRF tree kernel)",
+                                  lambda: crf_dec.decode(c1, i1, c2, i2, envelopes=diag),
+                                  ["duplex_exact_crf"], ("duplex", "duplex_exact"))
+    res_cfull, _, cfull_s = drive("CRF duplex auto full range (plain CRF slot engine)",
+                                  lambda: crf_dec.decode(c1, i1, c2, i2), [], all_dup)
+    if sum(a[0] != b[0] for a, b in zip(res_cd, res_diag)):
+        log(f"slot kernel vs tree kernel on the diagonal: "
+            f"{sum(a[0] != b[0] for a, b in zip(res_cd, res_diag))}/{B_DUP} sequences differ "
+            f"(the slot engines rebuild re-derived prefixes' bands; documented)")
+    return {"full": res_full, "cuda_diag": res_cd, "diag": res_diag, "crf_diag": res_cdiag,
+            "crf_full": res_cfull, "crf_full_s": cfull_s, "dec": dec, "crf_dec": crf_dec,
+            "launches": {"full": l_full, "diag": l_diag, "crf_diag": l_cdiag}}
+
+
+def auto_past_slot_smem(torch, api, log_counts):
+    """Auto on a constant window whose band the slot kernel's shared memory
+    cannot hold (beam 8, T2 = 1000) runs the tree kernel and equals the CPU
+    tree engine; past both kernels' lanes (beam 9 * 4 labels) it raises."""
+    from fast_ctc_decode_tpu_torch import BatchDuplexDecoder
+
+    n1, n2 = make_pairs(2, 8, 1000, len(ALPHABET), 73)
+    kw = dict(T1=8, T2=1000, beam_cut_threshold=DUP_THR)
+    torch.cuda.synchronize()
+    log_counts.reset()
+    got = BatchDuplexDecoder(ALPHABET, beam_size=8, device="cuda", **kw).decode(n1, n2)
+    one = api.beam_search_duplex(n1[0], n2[0], ALPHABET, beam_size=8, device="cuda")
+    launched = log_counts.read()
+    want = BatchDuplexDecoder(ALPHABET, beam_size=8, engine="exact", **kw).decode(n1, n2)
+    if launched["duplex_exact"] != 2 or launched["duplex"]:
+        raise AssertionError(f"auto past the slot kernel's shared memory: launches {launched}")
+    if got != want or one != want[0][0]:
+        raise AssertionError("auto past the slot kernel's shared memory differs from the CPU")
+    try:
+        BatchDuplexDecoder(ALPHABET, beam_size=9, device="cuda", **kw).decode(n1, n2)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("auto ran a duplex kernel past its lanes (beam 9 * 4 labels)")
+    log(f"duplex auto, constant window past the slot kernel's shared memory (beam 8, T2=1000): "
+        f"tree kernel, launches {launched['duplex_exact']} (batch + api), equal to the CPU tree "
+        f"engine; beam 9 raises ValueError")
+
+
+def duplex_phases(torch, dev, smi, log_counts):
+    """Phases 8-12 (duplex); returns the two duplex kernels' JSON rows."""
+    from duplex_helpers import diag_env
+    from fast_ctc_decode_tpu_torch import api, decode_many_duplex
+    from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
+
+    def diff(got, want):
+        return max(max_abs_diff(g, w) for g, w in zip(got, want))
+
+    def slot_run(fn, inp, K, collapse):
+        l1, l2, rg, lo, hi, lt, _, ln, st = inp
+        return fn(l1, l2, rg, lo, hi, lt, ln, beam_size=K, collapse_repeats=collapse,
+                  needs_ext=st["needs_ext"])
+
+    def slot_plain(inp, K, collapse):
+        l1, l2, rg, lo, hi, lt, init, ln, st = inp
+        return duplex_cuda.duplex_ids_plain(l1, l2, rg, lo, hi, lt, init, ln, beam_size=K,
+                                            collapse_repeats=collapse,
+                                            needs_ext=st["needs_ext"], crf=False)
+
+    def tree_run(fn, inp, K, collapse, crf, N=None):
+        l1, l2, rg, lo, hi, lt, init, ln, st = inp
+        st = dict(st, max_nodes=N or st["max_nodes"])
+        out = fn(l1, l2, rg, lo, hi, lt, init, ln, beam_size=K, collapse_repeats=collapse,
+                 crf=crf, **st)
+        return [out[f] for f in DUP_FIELDS]
+
+    # ---- phase 8: duplex kernels vs plain, bit for bit, on the card ----
+    err_slot = err_tree = err_tree_crf = 0
+    for name, kind, inputs, kw in duplex_parity_cases():
+        K, thr, collapse, N = kw["K"], kw["thr"], kw["collapse"], kw["N"]
+        crf = kind == "crf"
+        if crf:
+            (c1, i1, c2, i2), env = inputs
+            n1, n2, crf_in = c1, c2, (i1, i2)
+        else:
+            n1, n2, env = inputs
+            crf_in = None
+        lengths = kw["lengths"]
+        msg = []
+        if kind == "plain":
+            inp = duplex_inputs(torch, dev, n1, n2, env, thr, K=K, lengths=lengths)
+            d_ids = diff(slot_run(duplex_cuda.duplex_ids_kernel, inp, K, collapse),
+                         slot_plain(inp, K, collapse))
+            got = slot_run(duplex_cuda.duplex_kernel_batch, inp, K, collapse)
+            l1, l2, rg, lo, hi, lt, init, ln, st = inp
+            want = duplex_cuda.duplex_fast.duplex_fast_batch(
+                l1, l2, rg, lo, hi, lt, init, ln, beam_size=K, collapse_repeats=collapse,
+                needs_ext=st["needs_ext"], crf=False)
+            d_slot = max(d_ids, diff([got[f] for f in DUP_FIELDS], [want[f] for f in DUP_FIELDS]))
+            err_slot = max(err_slot, d_slot)
+            msg.append(f"slot {d_slot} (codes {sorted(set(got['err'].tolist()))})")
+            if d_slot:
+                raise AssertionError(f"duplex slot kernel != plain on case {name}")
+        inp = duplex_inputs(torch, dev, n1, n2, env, thr, crf=crf_in, tree=True, K=K,
+                            lengths=lengths)
+        got = tree_run(duplex_exact_cuda.duplex_exact_kernel_batch, inp, K, collapse, crf, N)
+        want = tree_run(duplex_exact_cuda.duplex_exact_plain, inp, K, collapse, crf, N)
+        d_tree = diff(got, want)
+        msg.append(f"tree{' crf' if crf else ''} {d_tree} (codes {sorted(set(got[2].tolist()))})")
+        if d_tree:
+            raise AssertionError(f"duplex tree kernel != plain on case {name}")
+        if crf:
+            err_tree_crf = max(err_tree_crf, d_tree)
+        else:
+            err_tree = max(err_tree, d_tree)
+        if kind == "tree" and name == "lower_steps_back":
+            # outside the slot kernel's envelope class: a CUDA tensor raises
+            sl = duplex_inputs(torch, dev, n1, n2, env, thr, K=K)
+            try:
+                slot_run(duplex_cuda.duplex_ids_kernel, sl, K, collapse)
+            except ValueError:
+                msg.append("slot kernel refuses it (ValueError)")
+            else:
+                raise AssertionError("the slot kernel ran outside its envelope class")
+        torch.cuda.synchronize()
+        log(f"parity duplex {name}: max_abs_err " + ", ".join(msg))
+
+    # ---- phase 9: the duplex paths at full width ----
+    dn1, dn2 = make_pairs(B_DUP, T_DUP, T_DUP, len(ALPHABET), 70)
+    c1, i1, c2, i2 = make_crf_pairs(B_DUP, T_DUP, T_DUP, S_DUP, len(ALPHABET), 71)
+    diag = diag_env(T_DUP, T_DUP, W_DIAG)
+    sample = np.linspace(0, B_DUP - 1, ORACLE_SAMPLES).astype(int)
+    jobs = {
+        "full": [("plain", (dn1[i], dn2[i], ALPHABET), dict(beam_size=BEAM)) for i in sample],
+        "diag": [("plain", (dn1[i], dn2[i], ALPHABET), dict(envelope=diag, beam_size=BEAM))
+                 for i in sample],
+        "crf_diag": [("crf", (c1[i], i1[i], c2[i], i2[i], ALPHABET),
+                      dict(envelope=diag, beam_size=BEAM)) for i in sample],
+        "crf_full": [("crf", (c1[i], i1[i], c2[i], i2[i], ALPHABET), dict(beam_size=BEAM))
+                     for i in sample],
+    }
+    # the oracle is plain Python: it runs in worker processes while the card works
+    pool = multiprocessing.get_context("spawn").Pool(min(6, os.cpu_count() or 1))
+    try:
+        pending = {k: pool.map_async(oracle_job, v) for k, v in jobs.items()}
+        res = duplex_paths(torch, dn1, dn2, c1, i1, c2, i2, diag, log_counts)
+        for key, out in (("full", res["full"]), ("diag", res["diag"]),
+                         ("crf_diag", res["crf_diag"]), ("crf_full", res["crf_full"])):
+            want = pending[key].get(timeout=900)
+            for i, w in zip(sample, want):
+                if out[i][0] != w:
+                    raise AssertionError(f"duplex {key} pair {i}: {out[i][0]!r} != oracle {w!r}")
+            log(f"oracle gate duplex {key}: {ORACLE_SAMPLES} sampled pairs equal "
+                f"tests/oracle.py (mean length {np.mean([len(r[0]) for r in out]):.1f})")
+    finally:
+        pool.terminate()
+        pool.join()
+    res_full, res_cd, res_diag, res_cdiag = (res[k] for k in ("full", "cuda_diag", "diag", "crf_diag"))
+    l_full, l_diag, l_cdiag, cfull_s = res["launches"]["full"], res["launches"]["diag"], \
+        res["launches"]["crf_diag"], res["crf_full_s"]
+    dec, crf_dec = res["dec"], res["crf_dec"]
+    auto_past_slot_smem(torch, api, log_counts)
+
+    # ---- phase 10: decode_many_duplex resumes from a checkpoint ----
+    rng = np.random.RandomState(72)
+    t1s = rng.randint(100, 601, size=200)
+    t1s[0] = 600  # the interrupted run sees the same auto bucket edges
+    t2s = np.clip(t1s + rng.randint(-20, 21, size=200), 80, None)
+    t2s[0] = 620
+    pairs = []
+    for i, (a, b) in enumerate(zip(t1s, t2s)):
+        p1, p2 = make_pairs(1, int(a), int(b), len(ALPHABET), 3000 + 2 * i)
+        pairs.append((p1[0], p2[0], diag_env(int(a), int(b), 30)))
+    mkw = dict(beam_size=BEAM, beam_cut_threshold=DUP_THR, batch_size=64, device="cuda")
+    log_counts.reset()
+    t0 = time.perf_counter()
+    full = decode_many_duplex(pairs, ALPHABET, **mkw)
+    full_s = time.perf_counter() - t0
+    if log_counts.read()["duplex_exact"] < 1:
+        raise AssertionError("decode_many_duplex: the tree kernel never launched")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "duplex.jsonl")
+        half = decode_many_duplex(pairs[:100], ALPHABET, checkpoint_path=ckpt, **mkw)
+        resumed = decode_many_duplex(pairs, ALPHABET, checkpoint_path=ckpt, **mkw)
+        before = log_counts.read()
+        again = decode_many_duplex(pairs, ALPHABET, checkpoint_path=ckpt, **mkw)
+        if log_counts.read() != before:
+            raise AssertionError("a complete duplex checkpoint decoded again")
+    if half != full[:100] or resumed != full or again != full:
+        raise AssertionError("decode_many_duplex: resumed results differ from an uninterrupted run")
+    if any(e != 0 for _, e in full):
+        raise AssertionError("decode_many_duplex: status codes not all OK")
+    log(f"decode_many_duplex: {len(pairs)} pairs, T1 {t1s.min()}-{t1s.max()}, T2 "
+        f"{t2s.min()}-{t2s.max()}, per-pair diagonal envelopes, {full_s:.3f} s uninterrupted; "
+        f"resumed run equals it")
+
+    # ---- phase 11: the single-read duplex API on the card ----
+    for i in (0, 1):
+        checks = [
+            ("auto full range (slot kernel)", api.beam_search_duplex(
+                dn1[i], dn2[i], ALPHABET, beam_size=BEAM, device="cuda"), res_full[i][0]),
+            ("fast on the diagonal (slot kernel)", api.beam_search_duplex(
+                dn1[i], dn2[i], ALPHABET, envelope=diag, beam_size=BEAM, engine="fast",
+                device="cuda"), res_cd[i][0]),
+            ("auto diagonal (tree kernel)", api.beam_search_duplex(
+                dn1[i], dn2[i], ALPHABET, envelope=diag, beam_size=BEAM, device="cuda"),
+             res_diag[i][0]),
+            ("CRF auto diagonal (CRF tree kernel)", api.crf_beam_search_duplex(
+                c1[i], i1[i], c2[i], i2[i], ALPHABET, envelope=diag, beam_size=BEAM,
+                device="cuda"), res_cdiag[i][0]),
+        ]
+        for what, got, want in checks:
+            if got != want:
+                raise AssertionError(f"api duplex {what} pair {i} differs from the batch")
+    back = diag.copy()
+    back[300, 0] -= 5
+    try:
+        api.beam_search_duplex(dn1[0], dn2[0], ALPHABET, envelope=back, engine="fast",
+                               device="cuda")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the slot kernel ran outside its envelope class")
+    log("single-read api.beam_search_duplex (auto, fast, exact) / crf_beam_search_duplex "
+        "on the card equal the batch results; engine='fast' outside the slot kernel's "
+        "class raises ValueError")
+
+    # ---- phase 12: times at full width; kernels held to plain there too ----
+    full_env = np.stack([np.zeros(T_DUP, np.int64), np.full(T_DUP, T_DUP, np.int64)], 1)
+    shape = f"B={B_DUP} T1=T2={T_DUP}"
+    rows = {}
+    for name, env in (("slot full", full_env), (f"slot diag{W_DIAG}", diag)):
+        inp = duplex_inputs(torch, dev, dn1, dn2, env, DUP_THR)
+        k_ms = median_event_ms(lambda: slot_run(duplex_cuda.duplex_ids_kernel, inp, BEAM, True),
+                               torch)
+        got = slot_run(duplex_cuda.duplex_ids_kernel, inp, BEAM, True)
+        p_ms, want = once_event_ms(lambda: slot_plain(inp, BEAM, True), torch)
+        d = diff(got, want)
+        log(f"time duplex {name} {shape}: kernel {k_ms!r} ms, plain {p_ms!r} ms; full-width "
+            f"max_abs_err {d} [{smi}]")
+        if d:
+            raise AssertionError(f"duplex slot kernel != plain at full width ({name})")
+        rows[name] = (k_ms, p_ms)
+    for name, crf in (("tree", False), ("tree crf", True)):
+        if crf:
+            inp = duplex_inputs(torch, dev, c1, c2, diag, DUP_THR, crf=(i1, i2), tree=True)
+        else:
+            inp = duplex_inputs(torch, dev, dn1, dn2, diag, DUP_THR, tree=True)
+        k_ms = median_event_ms(
+            lambda: tree_run(duplex_exact_cuda.duplex_exact_kernel_batch, inp, BEAM, not crf, crf),
+            torch)
+        got = tree_run(duplex_exact_cuda.duplex_exact_kernel_batch, inp, BEAM, not crf, crf)
+        p_ms, want = once_event_ms(
+            lambda: tree_run(duplex_exact_cuda.duplex_exact_plain, inp, BEAM, not crf, crf), torch)
+        d = diff(got, want)
+        log(f"time duplex {name} diag{W_DIAG} {shape}{' S=16' if crf else ''}: kernel "
+            f"{k_ms!r} ms, plain {p_ms!r} ms; full-width max_abs_err {d} [{smi}]")
+        if d:
+            raise AssertionError(f"duplex {name} kernel != plain at full width")
+        rows[name] = (k_ms, p_ms)
+        del inp, got, want
+        torch.cuda.empty_cache()
+    dec_ms = {
+        "auto full range decode_arrays": median_ms(lambda: dec.decode_arrays(dn1, dn2), torch, 3),
+        "auto full range decode": median_ms(lambda: dec.decode(dn1, dn2), torch, 3),
+        "auto diagonal decode_arrays": median_ms(
+            lambda: dec.decode_arrays(dn1, dn2, envelopes=diag), torch, 3),
+        "auto diagonal decode": median_ms(lambda: dec.decode(dn1, dn2, envelopes=diag), torch, 3),
+        "CRF auto diagonal decode": median_ms(
+            lambda: crf_dec.decode(c1, i1, c2, i2, envelopes=diag), torch, 3),
+        "CRF auto full range decode (plain engine, first call)": cfull_s * 1e3,
+    }
+    for name, t in dec_ms.items():
+        log(f"time duplex {name} {shape}: {t!r} ms ({B_DUP / (t / 1e3):.1f} pairs/s) [{smi}]")
+
+    src = "fast_ctc_decode_tpu_torch/csrc/"
+    return [
+        {"name": "duplex_slot_kernel", "route": "cuda", "source": src + "duplex_kernel.cu",
+         "replaces": "fast_ctc_decode_tpu/ops/duplex_pallas.py:103",
+         "launches": l_full["duplex"], "max_abs_err": err_slot,
+         "ms": rows["slot full"][0], "plain_ms": rows["slot full"][1],
+         "diag_ms": rows[f"slot diag{W_DIAG}"][0], "diag_plain_ms": rows[f"slot diag{W_DIAG}"][1]},
+        {"name": "duplex_exact_kernel", "route": "cuda", "source": src + "duplex_exact_kernel.cu",
+         "replaces": "fast_ctc_decode_tpu/ops/duplex_exact_pallas.py:108",
+         "launches": l_diag["duplex_exact"] + l_cdiag["duplex_exact_crf"],
+         "max_abs_err": max(err_tree, err_tree_crf),
+         "ms": rows["tree"][0], "plain_ms": rows["tree"][1],
+         "crf_launches": l_cdiag["duplex_exact_crf"],
+         "crf_ms": rows["tree crf"][0], "crf_plain_ms": rows["tree crf"][1]},
+    ]
 
 
 def main():
@@ -237,7 +688,7 @@ def main():
     from fast_ctc_decode_tpu_torch import BatchCrfBeamDecoder, BatchViterbiDecoder
     from fast_ctc_decode_tpu_torch import api, decode_many_crf, native
     from fast_ctc_decode_tpu_torch.ops import _build, beam_cuda, beam_fast
-    from fast_ctc_decode_tpu_torch.ops import beam_exact_cuda
+    from fast_ctc_decode_tpu_torch.ops import beam_exact_cuda, duplex_cuda, duplex_exact_cuda
     from fast_ctc_decode_tpu_torch.utils import profiling
 
     run_t0 = time.perf_counter()
@@ -420,11 +871,12 @@ def main():
     torch.cuda.empty_cache()
 
     def reset_counts():
-        beam_cuda.reset_launches()
-        beam_exact_cuda.reset_launches()
+        for m in (beam_cuda, beam_exact_cuda, duplex_cuda, duplex_exact_cuda):
+            m.reset_launches()
 
     def counts():
-        return {**beam_cuda.launches, **beam_exact_cuda.launches}
+        return {**beam_cuda.launches, **beam_exact_cuda.launches, **duplex_cuda.launches,
+                **duplex_exact_cuda.launches}
 
     def oracle_gate(name, res, oracle_fn, with_path):
         for i in np.linspace(0, len(res) - 1, 8).astype(int):
@@ -601,6 +1053,9 @@ def main():
         B = int(name.split("B=")[1].split()[0])
         log(f"time {name}: {t!r} ms ({B / (t / 1e3):.1f} reads/s) [{smi}]")
 
+    duplex_rows = duplex_phases(
+        torch, dev, smi, types.SimpleNamespace(reset=reset_counts, read=counts))
+
     if "jax" in sys.modules or any(m.startswith("fast_ctc_decode_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     log(f"total wall time: {time.perf_counter() - run_t0:.1f} s")
@@ -626,6 +1081,7 @@ def main():
          "replaces": "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65",
          "launches": path_launches["exact_crf"], "max_abs_err": err_exact_crf,
          "ms": new_ms["exact crf kernel"], "plain_ms": new_ms["plain exact crf"]},
+        *duplex_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,23 +6,35 @@ JAX package's engines.  It imports neither jax nor the JAX package.
 
 Public surface:
   - the single-read reference API (``api.py``): ``viterbi_search``,
-    ``beam_search``, ``crf_greedy_search`` and ``crf_beam_search``, each
-    with a keyword-only ``device``;
+    ``beam_search``, ``crf_greedy_search``, ``crf_beam_search``,
+    ``beam_search_duplex`` and ``crf_beam_search_duplex``, each with a
+    keyword-only ``device``;
   - the batch pipeline: ``BatchBeamDecoder`` (engines cuda/fast/exact),
     ``BatchViterbiDecoder``, ``BatchCrfBeamDecoder`` (cuda/fast/exact),
-    and the checkpointable ``decode_many`` / ``decode_many_crf``;
+    ``BatchDuplexDecoder`` (cuda/fast/exact), ``BatchCrfDuplexDecoder``
+    (fast/exact), and the checkpointable ``decode_many`` /
+    ``decode_many_crf`` / ``decode_many_duplex``;
   - ``SearchError`` and ``__version__``.
-The duplex entry points of the JAX package are not ported yet.
 """
 
-from .api import beam_search, crf_beam_search, crf_greedy_search, viterbi_search
+from .api import (
+    beam_search,
+    beam_search_duplex,
+    crf_beam_search,
+    crf_beam_search_duplex,
+    crf_greedy_search,
+    viterbi_search,
+)
 from .errors import SearchError
 from .parallel.pipeline import (
     BatchBeamDecoder,
     BatchCrfBeamDecoder,
+    BatchCrfDuplexDecoder,
+    BatchDuplexDecoder,
     BatchViterbiDecoder,
     decode_many,
     decode_many_crf,
+    decode_many_duplex,
 )
 
 __version__ = "0.1.0"
@@ -32,11 +44,16 @@ __all__ = [
     "beam_search",
     "crf_greedy_search",
     "crf_beam_search",
+    "beam_search_duplex",
+    "crf_beam_search_duplex",
     "BatchBeamDecoder",
     "BatchViterbiDecoder",
     "BatchCrfBeamDecoder",
+    "BatchDuplexDecoder",
+    "BatchCrfDuplexDecoder",
     "decode_many",
     "decode_many_crf",
+    "decode_many_duplex",
     "SearchError",
     "__version__",
 ]

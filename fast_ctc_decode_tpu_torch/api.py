@@ -1,13 +1,14 @@
-"""Reference-parity single-read API: viterbi, beam, CRF greedy and CRF beam.
+"""Reference-parity single-read API: viterbi, beam, CRF greedy, CRF beam and
+the two duplex pair-consensus searches.
 
-Port of four of the six entry points of ``fast_ctc_decode_tpu/api.py``
-(the reference's PyO3 bindings, src/lib.rs:170-286): the same signatures,
+Port of the six entry points of ``fast_ctc_decode_tpu/api.py`` (the
+reference's PyO3 bindings, src/lib.rs:170-578): the same signatures,
 defaults, argument checks, messages and exception types (ValueError for
 precondition failures before any decode, RuntimeError (``SearchError``)
 for search failures, TypeError for a non-f32 or wrong-rank array).  Each
 function adds one keyword-only ``device`` ("cpu" by default): the decode
 runs there, on the hand-written kernels for a CUDA device and on the plain
-torch engines for the CPU.  The two duplex entry points are not ported yet.
+torch engines for the CPU.
 
 Engines of the two beam functions:
   - "exact" (default): the flattened-suffix-tree engine, bit-exact
@@ -34,12 +35,15 @@ from .ops import beam_exact_cuda
 from .ops import beam_fast
 from .ops import crf as crf_ops
 from .ops import viterbi as viterbi_ops
+from .parallel import pipeline
 
 __all__ = [
     "viterbi_search",
     "beam_search",
     "crf_greedy_search",
     "crf_beam_search",
+    "beam_search_duplex",
+    "crf_beam_search_duplex",
 ]
 
 
@@ -269,3 +273,164 @@ def crf_beam_search(
     else:
         raise ValueError(f"unknown engine {engine!r}")
     return _beam_result_to_seq_path(out, alphabet)
+
+
+def _pick_duplex_engine(
+    engine: Optional[str],
+    batch,
+    max_nodes: Optional[int] = None,
+    *,
+    device="cpu",
+    beam_size: int = 5,
+    crf: bool = False,
+) -> str:
+    """Engine selection for the duplex searches: the ``run_duplex_engine``
+    engine of one prepared pair.
+
+    "fast" (the slot-band engines) is sequence-exact against the reference
+    whenever every step sees the *same* clamped window, in particular the
+    default full-range envelope, because a re-derived prefix's rebuilt band
+    is then value-identical to the reference's reused one.  Any envelope
+    whose window moves can make the slot engines rebuild bands over a
+    different window than the reference's stale ones, so those default to
+    the bit-exact tree engine ("exact").  An explicitly supplied
+    ``max_nodes`` (the exact engine's tree budget) also forces "exact".
+    Auto is the batch decoders' rule (``pipeline.auto_duplex_engine``).  On
+    a CUDA device "fast" is the slot kernel ("cuda"; plain duplex only),
+    which raises ValueError outside its envelope class or bounds.
+    """
+    if engine is None:
+        if max_nodes is not None:
+            return "exact"
+        return pipeline.auto_duplex_engine(batch.lo, batch.hi, device, beam_size, crf=crf)
+    if engine not in ("fast", "exact"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "fast" and max_nodes is not None:
+        raise ValueError("max_nodes requires engine='exact'")
+    if engine == "fast" and torch.device(device).type == "cuda" and not crf:
+        return "cuda"
+    return engine
+
+
+def _check_envelope(envelope, network_output_1, network_output_2) -> np.ndarray:
+    """Envelope validation + default construction (src/lib.rs:445-469):
+    default = the full network_output_2 range for every network_output_1 row."""
+    t1 = network_output_1.shape[0]
+    t2 = network_output_2.shape[0]
+    if envelope is None:
+        env = np.zeros((t1, 2), dtype=np.int64)
+        env[:, 1] = t2
+        return env
+    if not isinstance(envelope, np.ndarray):
+        raise TypeError("envelope must be a numpy.ndarray")
+    if envelope.ndim != 2:
+        raise TypeError("envelope must be 2-dimensional")
+    if not np.issubdtype(envelope.dtype, np.integer):
+        raise TypeError("envelope must have an integer dtype")
+    if envelope.shape[0] != t1:
+        raise ValueError("the lengths of network_output_1 and envelope do not match")
+    if envelope.shape[1] != 2:
+        raise ValueError("the inner axis of envelope must have size 2")
+    if np.any(envelope < 0):
+        # reference takes usize — negative values are a TypeError at binding
+        raise TypeError("envelope values must be non-negative")
+    return envelope.astype(np.int64)
+
+
+def _duplex_string(out, alphabet) -> str:
+    out = {k: v[0].cpu().numpy() for k, v in out.items()}
+    errors.raise_for_status(int(out["err"]))
+    n = int(out["count"])
+    return "".join(alphabet[int(l) + 1] for l in out["labels_rev"][:n][::-1])
+
+
+def beam_search_duplex(
+    network_output_1,
+    network_output_2,
+    alphabet: Union[str, Sequence],
+    envelope=None,
+    beam_size: int = 5,
+    beam_cut_threshold: float = 0.0,
+    collapse_repeats: bool = True,
+    *,
+    max_nodes: Optional[int] = None,
+    engine: Optional[str] = None,
+    device="cpu",
+) -> str:
+    """2-D pair-consensus beam search; parity with src/lib.rs:411-488 /
+    src/duplex.rs:443-650.  ``engine``: None (auto, ``_pick_duplex_engine``),
+    "fast" (slot bands: the slot kernel on a CUDA ``device``, which raises
+    ValueError outside its envelope class of non-decreasing lower bounds or
+    its bounds; the plain engine on the CPU) or "exact" (the tree kernel on
+    CUDA, the plain tree engine on the CPU)."""
+    alphabet = normalize_alphabet(alphabet)
+    network_output_1 = _as_f32(network_output_1, 2, "network_output_1")
+    network_output_2 = _as_f32(network_output_2, 2, "network_output_2")
+    if network_output_1.shape[1] != network_output_2.shape[1]:
+        raise ValueError("inner axes of the network outputs do not match")
+    if len(alphabet) != network_output_1.shape[1]:
+        raise ValueError(
+            f"alphabet size {len(alphabet)} does not match probability matrix "
+            f"inner dimension {network_output_1.shape[1]}"
+        )
+    _check_beam_args(alphabet, beam_size, beam_cut_threshold)
+    envelope = _check_envelope(envelope, network_output_1, network_output_2)
+
+    batch = pipeline.prep_duplex_batch(
+        network_output_1[None], network_output_2[None], envelope, None, beam_cut_threshold,
+        T1=network_output_1.shape[0], T2=network_output_2.shape[0],
+    )
+    engine = _pick_duplex_engine(engine, batch, max_nodes, device=device,
+                                 beam_size=int(beam_size))
+    out = pipeline.run_duplex_engine(
+        engine, batch, device, beam_size=int(beam_size), collapse=bool(collapse_repeats),
+        crf=False, max_nodes=max_nodes,
+    )
+    return _duplex_string(out, alphabet)
+
+
+def crf_beam_search_duplex(
+    network_output_1,
+    init_state_1,
+    network_output_2,
+    init_state_2,
+    alphabet: Union[str, Sequence],
+    envelope=None,
+    beam_size: int = 5,
+    beam_cut_threshold: float = 0.0,
+    *,
+    max_nodes: Optional[int] = None,
+    engine: Optional[str] = None,
+    device="cpu",
+) -> str:
+    """2-D CRF pair-consensus beam search; parity with src/lib.rs:495-578 /
+    src/duplex.rs:652-834.  ``engine`` as in ``beam_search_duplex``, except
+    that "fast" runs the plain CRF slot engine on every device (there is no
+    CRF slot kernel, as in the JAX package)."""
+    alphabet = normalize_alphabet(alphabet)
+    network_output_1 = _as_f32(network_output_1, 3, "network_output_1")
+    network_output_2 = _as_f32(network_output_2, 3, "network_output_2")
+    init_state_1 = _as_f32(init_state_1, 1, "init_state_1")
+    init_state_2 = _as_f32(init_state_2, 1, "init_state_2")
+    if network_output_1.shape[2] != network_output_2.shape[2]:
+        raise ValueError("inner axes of the network outputs do not match")
+    if len(alphabet) != network_output_1.shape[2]:
+        raise ValueError(
+            f"alphabet size {len(alphabet)} does not match probability matrix "
+            f"inner dimension {network_output_1.shape[1]}"
+        )
+    _check_beam_args(alphabet, beam_size, beam_cut_threshold)
+    envelope = _check_envelope(envelope, network_output_1, network_output_2)
+
+    batch = pipeline.prep_duplex_batch(
+        network_output_1[None], network_output_2[None], envelope, None, beam_cut_threshold,
+        T1=network_output_1.shape[0], T2=network_output_2.shape[0], init1=init_state_1[None],
+        init2=init_state_2[None],
+    )
+    engine = _pick_duplex_engine(engine, batch, max_nodes, device=device,
+                                 beam_size=int(beam_size), crf=True)
+    out = pipeline.run_duplex_engine(
+        engine, batch, device, beam_size=int(beam_size), collapse=False, crf=True,
+        max_nodes=max_nodes,
+    )
+    return _duplex_string(out, alphabet)

@@ -1,0 +1,485 @@
+// Batched duplex pair-consensus beam search over a per-pair suffix tree with
+// reference band reuse, plain and CRF: the exact duplex engine.
+//
+// Replaces: fast_ctc_decode_tpu/ops/duplex_exact_pallas.py::_exact_duplex_kernel
+// (behind duplex_exact_pallas_batch), in both forms.  It computes what the
+// plain engine fast_ctc_decode_tpu_torch/ops/duplex.py::duplex_exact_batch
+// computes, bit for bit: nodes allocated in the reference's add_node order
+// (tip-major, labels ascending); every node's band persists for the whole
+// decode and is built once, cell by cell in the reference's order, when the
+// node is made; on steps where the envelope's upper bound grows the beam is
+// node-sorted (the reference's in-place sort, which that step's expansion
+// keeps) and each live node's band is extended in place, parents before
+// children (discard below lo - 1, window max, cells [end, hi) reading the
+// parent's band as just extended); blank + stay + one arrival per node; K
+// rounds of (max score, tie -> min node id) with valid -inf scores keyed
+// just above the invalid fill; NODE_OVERFLOW past max_nodes; the traceback
+// of slot 0's parent chain, leaf first.
+//
+// Design: one warp (one block of 32 threads) per pair, lane c = k*A + a for
+// candidate (tip k, label a), so K*A <= 32; the beam lives in shared arrays.
+// The tree and the bands live in uninitialised global scratch, one slab per
+// pair, sized to the caller's max_nodes N:
+//   parent [N] | label [N] | boff [N] | blen [N] | child [(N+1)*A] (row
+//   node+1) | bmax [N] f32 | blab [N*W] f32 | bgap [N*W] f32
+// (column t2 - boff of a node's band row).  A child lookup is accepted only
+// if the id is below the pair's node count and parent / label of that node
+// name the tip and label looked up (children are unique per (parent,
+// label), so garbage never passes), as in exact_beam_kernel.cu.  Node ids
+// are plain int32: no packed words, no node cap of the kernel's own and no
+// re-run elsewhere, unlike the TPU kernel.
+//
+// A step: the ballot ranks of the lanes that miss their child allocate in
+// add_node order; each lane that made a node builds that node's band
+// (reading its tip's band, or the root band); the window max of an
+// extension and the discard's left shift of a band row run warp-parallel
+// over cells, the appended cells on lane 0; the selection is K rounds of a
+// warp arg-max.
+//
+// What bounds it on this card: latency.  A band build is a serial chain of
+// three expf/log1pf logsumexps per cell on one lane, reading the tip's band
+// from global memory; extensions are serial on lane 0; the tree reads are
+// dependent scattered loads.  One warp per pair keeps few warps per SM busy.
+// The simple design accepts that.
+//
+// Bit-parity rules: duplex_core.cuh's ls_add / ls_max; sums with __fadd_rn;
+// labels pass the cut as !(p < thr) and blanks as p0 > thr; the selection
+// key maps NaN to +inf, a valid -inf score to -3e38 and adds +0.0;
+// INCOMPARABLE_VALUES needs a NaN score among >= 2 valid candidates; within
+// a step the status priority is overflow > NaN > empty beam.
+
+#include "duplex_core.cuh"
+
+namespace {
+
+using namespace duplex;
+
+constexpr int kLanes = 32;
+constexpr float kNegValid = -3.0e38f;
+
+struct Beam {
+  int node[kLanes], state[kLanes], valid[kLanes];
+  float p1l[kLanes], p1g[kLanes], p2m[kLanes];
+};
+
+struct Tree {
+  int* parent;
+  int* label;
+  int* boff;
+  int* blen;
+  int* child;
+  float* bmax;
+  float* blab;
+  float* bgap;
+};
+
+// (label, gap) band value of `node` at cell t2; the virtual root (node < 0)
+// reads the root band; out of window: -inf.
+__device__ __forceinline__ void band_get(const Tree& tr, const float* root_gap, int Wr,
+                                         int W, int node, int t2, float& lab, float& gap) {
+  if (node < 0) {
+    lab = neg_inf();
+    gap = root_read(root_gap, Wr, t2);
+    return;
+  }
+  const int idx = t2 - tr.boff[node];
+  if (idx >= 0 && idx < tr.blen[node]) {
+    const size_t at = (size_t)node * W + (idx < W ? idx : W - 1);
+    lab = tr.blab[at];
+    gap = tr.bgap[at];
+  } else {
+    lab = neg_inf();
+    gap = neg_inf();
+  }
+}
+
+template <bool CRF>
+__global__ void __launch_bounds__(kLanes)
+duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
+                    const float* __restrict__ root_gap_all, const int* __restrict__ lo_all,
+                    const int* __restrict__ hi_all, const int* __restrict__ init_states,
+                    const int* __restrict__ lengths, float thr, int B, int T1, int T2,
+                    int S, int A, int K, int N, int W, int Wr, int needs_ext, int collapse,
+                    int* __restrict__ scratch, long long stride, int* __restrict__ labels_rev,
+                    int* __restrict__ count_out, int* __restrict__ err_out) {
+  __shared__ Beam bm;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int A1 = A + 1;
+  const int KA = K * A;
+  const float* l1b = l1 + (size_t)b * T1 * S * A1;
+  const float* l2b = l2 + (size_t)b * T2 * S * A1;
+  const float* root_gap = root_gap_all + (size_t)b * Wr;
+  const int* lo_b = lo_all + (size_t)b * T1;
+  const int* hi_b = hi_all + (size_t)b * T1;
+  int* base = scratch + (size_t)b * (size_t)stride;
+  Tree tr;
+  tr.parent = base;
+  tr.label = base + N;
+  tr.boff = base + 2 * (size_t)N;
+  tr.blen = base + 3 * (size_t)N;
+  tr.child = base + 4 * (size_t)N;
+  tr.bmax = reinterpret_cast<float*>(tr.child + (size_t)(N + 1) * A);
+  tr.blab = tr.bmax + N;
+  tr.bgap = tr.blab + (size_t)N * W;
+  auto clamp_s = [&](int s) { return s < 0 ? 0 : (s > S - 1 ? S - 1 : s); };
+  // network rows: plain [T, A+1]; CRF [T, S, A+1] at the given state
+  auto row1 = [&](int t, int st) { return l1b + ((size_t)t * S + (CRF ? clamp_s(st) : 0)) * A1; };
+  auto row2 = [&](int t2, int st) {
+    const int tc = t2 < 0 ? 0 : (t2 > T2 - 1 ? T2 - 1 : t2);
+    return l2b + ((size_t)tc * S + (CRF ? clamp_s(st) : 0)) * A1;
+  };
+
+  if (lane < K) {
+    const bool r0 = lane == 0;
+    bm.node[lane] = r0 ? -1 : -2;
+    bm.state[lane] = r0 ? init_states[b] : 0;
+    bm.valid[lane] = r0;
+    bm.p1l[lane] = neg_inf();
+    bm.p1g[lane] = r0 ? 0.f : neg_inf();
+    bm.p2m[lane] = r0 ? 0.f : neg_inf();
+  }
+  __syncwarp();
+  const int len = lengths[b];
+  int err = 0, last_upper = 0, n_nodes = 0;
+
+  for (int t = 0; t < T1; ++t) {
+    const int lo = lo_b[t], hi = hi_b[t];
+    const bool in_range = t < len;
+    const bool env_bad = in_range && (lo >= hi || lo > last_upper);
+    if (err == 0 && env_bad) err = kInvalidEnvelope;
+    if (!(err == 0 && in_range)) break;  // frozen from here on
+
+    // ---- node-sorted beam, then band extension, parents before children ----
+    if (needs_ext && hi > last_upper) {
+      int f_node = 0, f_state = 0, f_valid = 0, rank = 0;
+      float f_l = 0.f, f_g = 0.f, f_p2 = 0.f;
+      if (lane < K) {
+        f_node = bm.node[lane];
+        f_state = bm.state[lane];
+        f_valid = bm.valid[lane];
+        f_l = bm.p1l[lane];
+        f_g = bm.p1g[lane];
+        f_p2 = bm.p2m[lane];
+        const int key = f_valid ? f_node : 0x7fffffff;
+        for (int j = 0; j < K; ++j) {
+          const int kj = bm.valid[j] ? bm.node[j] : 0x7fffffff;
+          rank += (kj < key || (kj == key && j < lane)) ? 1 : 0;
+        }
+      }
+      __syncwarp();
+      if (lane < K) {
+        bm.node[rank] = f_node;
+        bm.state[rank] = f_state;
+        bm.valid[rank] = f_valid;
+        bm.p1l[rank] = f_l;
+        bm.p1g[rank] = f_g;
+        bm.p2m[rank] = f_p2;
+      }
+      __syncwarp();
+      for (int s = 0; s < K; ++s) {
+        const int n = bm.node[s];
+        if (!(n >= 0 && bm.valid[s])) continue;
+        const int off = tr.boff[n], ln = tr.blen[n];
+        const bool do_discard = lo > off;
+        const int shift = (lo - 1) - off;
+        const bool emptied = ln - shift <= 0;
+        const int off2 = do_discard ? (emptied ? lo : lo - 1) : off;
+        const int L2 = do_discard ? (emptied ? 0 : ln - shift) : ln;
+        float* rl = tr.blab + (size_t)n * W;
+        float* rg = tr.bgap + (size_t)n * W;
+        if (do_discard && !emptied && shift > 0) {
+          // discard_until(lo - 1): shift the kept cells to column 0, one
+          // warp-wide chunk at a time (a chunk reads only columns that no
+          // earlier chunk wrote)
+          for (int c0 = 0; c0 < L2; c0 += kLanes) {
+            const int j = c0 + lane;
+            float vl = 0.f, vg = 0.f;
+            if (j < L2) {
+              vl = rl[j + shift];
+              vg = rg[j + shift];
+            }
+            __syncwarp();
+            if (j < L2) {
+              rl[j] = vl;
+              rg[j] = vg;
+            }
+            __syncwarp();
+          }
+        }
+        float mx = tr.bmax[n];
+        if (do_discard) {  // update_max(lo, hi) over the kept window
+          float v = neg_inf();
+          for (int j = lane; j < L2 && j < W; j += kLanes) {
+            const int t2 = off2 + j;
+            if (t2 >= lo && t2 < hi) v = ls_max(v, ls_add(rl[j], rg[j]));
+          }
+          mx = warp_max(v);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          const int par = tr.parent[n];
+          const int lbl = tr.label[n];
+          const int par_lbl = par >= 0 ? tr.label[par] : -1;
+          // the CRF extension recurrence has no repeat branch
+          const bool prep = !CRF && par_lbl == lbl;
+          const int li = 1 + (lbl < 0 ? 0 : (lbl > A - 1 ? A - 1 : lbl));
+          float last_lab = neg_inf(), last_gap = neg_inf();
+          if (L2 > 0) {
+            const int c = (L2 - 1) < W ? L2 - 1 : W - 1;
+            last_lab = rl[c];
+            last_gap = rg[c];
+          }
+          for (int t2 = off2 + L2; t2 < hi; ++t2) {
+            const float* r2 = row2(t2, bm.state[s]);
+            const float gap_n = __fadd_rn(ls_add(last_lab, last_gap), r2[0]);
+            float pvl, pvg;
+            band_get(tr, root_gap, Wr, W, par, t2 - 1, pvl, pvg);
+            const float bse = prep ? pvg : ls_add(pvl, pvg);
+            const float lab_n = __fadd_rn(r2[li], ls_add(last_lab, bse));
+            int w = t2 - off2;
+            w = w < 0 ? 0 : (w > W - 1 ? W - 1 : w);
+            rl[w] = lab_n;
+            rg[w] = gap_n;
+            mx = ls_max(mx, ls_add(lab_n, gap_n));
+            last_lab = lab_n;
+            last_gap = gap_n;
+          }
+          tr.boff[n] = off2;
+          tr.blen[n] = L2 > hi - off2 ? L2 : hi - off2;
+          tr.bmax[n] = mx;
+        }
+        __syncwarp();
+      }
+    }
+    last_upper = hi;
+
+    // ---- expansion: child lookups, allocation in add_node order ----
+    const bool is_cand = lane < KA;
+    const int k = is_cand ? lane / A : 0;
+    const int a = is_cand ? lane - k * A : 0;
+    const int nk = bm.node[k];
+    const bool vk = is_cand && bm.valid[k];
+    const float* r1k = row1(t, bm.state[k]);
+    const float plab = r1k[1 + a];
+    const bool pushed = vk && !(plab < thr);
+    const int tip_lbl_k = nk >= 0 ? tr.label[nk] : -1;
+    const bool is_rep = !CRF && collapse && tip_lbl_k == a;
+    int ch = -1;
+    if (vk) {
+      const int e = tr.child[(size_t)(nk + 1) * A + a];
+      if (e >= 0 && e < n_nodes && tr.parent[e] == nk && tr.label[e] == a) ch = e;
+    }
+    const bool needs_new = pushed && ch < 0 && (!is_rep || bm.p1g[k] > neg_inf());
+    const unsigned bal = __ballot_sync(kFull, needs_new);
+    const int total = __popc(bal);
+    const int rank = __popc(bal & ((1u << lane) - 1u));
+    const bool overflow = n_nodes + total > N;
+    int new_id = -1;
+    if (needs_new && n_nodes + rank < N) {
+      new_id = n_nodes + rank;
+      tr.parent[new_id] = nk;
+      tr.label[new_id] = a;
+      tr.child[(size_t)(nk + 1) * A + a] = new_id;
+    }
+    n_nodes = n_nodes + total < N ? n_nodes + total : N;
+    const int nid = ch >= 0 ? ch : new_id;
+
+    // ---- a new node's band: cell by cell over [lo, hi) ----
+    if (new_id >= 0) {
+      float* dl = tr.blab + (size_t)new_id * W;
+      float* dg = tr.bgap + (size_t)new_id * W;
+      float last_lab = neg_inf(), last_tot = neg_inf(), mx = neg_inf();
+      const int n_cells = (hi - lo) < W ? hi - lo : W;
+      for (int j = 0; j < n_cells; ++j) {
+        const int t2 = lo + j;
+        float pvl, pvg;
+        band_get(tr, root_gap, Wr, W, nk, t2 - 1, pvl, pvg);
+        const float bse = is_rep ? pvg : ls_add(pvl, pvg);
+        const float* r2 = row2(t2, bm.state[k]);
+        const float gap_n = __fadd_rn(last_tot, r2[0]);
+        const float lab_n = __fadd_rn(r2[1 + a], ls_add(last_lab, bse));
+        dl[j] = lab_n;
+        dg[j] = gap_n;
+        last_lab = lab_n;
+        last_tot = ls_add(lab_n, gap_n);
+        mx = ls_max(mx, last_tot);
+      }
+      tr.boff[new_id] = lo;
+      tr.blen[new_id] = hi - lo;
+      tr.bmax[new_id] = mx;
+    }
+    __syncwarp();
+
+    // ---- analytic merge: a node receives blank + stay + ONE nid mass ----
+    const float p1tot_k = ls_add(bm.p1l[k], bm.p1g[k]);
+    float m_nid = __fadd_rn(p1tot_k, plab);
+    if (is_rep) m_nid = __fadd_rn(bm.p1g[k], plab);
+    const bool push_nid = pushed && nid >= 0;
+    bool matched = false;
+    for (int j = 0; j < K; ++j) matched = matched || (push_nid && bm.valid[j] && bm.node[j] == nid);
+    const bool fvalid = push_nid && !matched;
+    const int fstate = CRF ? (bm.state[k] * A) % S + a : 0;
+    float recv = neg_inf();
+    bool recv_any = false;
+    for (int j = 0; j < K; ++j) {
+      const bool hit = push_nid && bm.valid[j] && bm.node[j] == nid;
+      const unsigned hb = __ballot_sync(kFull, hit);
+      const float v = __shfl_sync(kFull, m_nid, hb ? __ffs(hb) - 1 : 0);
+      if (lane == j && hb) {
+        recv = v;
+        recv_any = true;
+      }
+    }
+    bool tvalid = false;
+    float tlab = neg_inf(), tgap = neg_inf();
+    if (lane < K) {
+      const bool vj = bm.valid[lane];
+      const int nj = bm.node[lane];
+      const float* r1j = row1(t, bm.state[lane]);
+      const float p0 = r1j[0];
+      const float p1tot = ls_add(bm.p1l[lane], bm.p1g[lane]);
+      const bool push_b = vj && p0 > thr;
+      if (push_b) tgap = __fadd_rn(p1tot, p0);
+      bool stay_any = false;
+      float stay = neg_inf();
+      if (!CRF && collapse) {
+        const int tl = nj >= 0 ? tr.label[nj] : -1;
+        if (vj && tl >= 0 && tl < A && !(r1j[1 + tl] < thr)) {
+          stay_any = true;
+          stay = __fadd_rn(bm.p1l[lane], r1j[1 + tl]);
+        }
+      }
+      tlab = ls_add(stay, recv);
+      tvalid = push_b || stay_any || recv_any;
+    }
+
+    // ---- selection: K rounds of (max key, tie -> min node) ----
+    const int tnode = lane < K ? bm.node[lane] : 0;
+    const float tp2 = (tvalid && tnode >= 0) ? tr.bmax[tnode] : (lane < K ? bm.p2m[lane] : neg_inf());
+    const float fp2 = (fvalid && nid >= 0) ? tr.bmax[nid] : neg_inf();
+    const float tscore = __fadd_rn(ls_add(tlab, tgap), tp2);
+    const float fscore = __fadd_rn(ls_add(m_nid, neg_inf()), fp2);
+    const int cnt = __popc(__ballot_sync(kFull, tvalid)) + __popc(__ballot_sync(kFull, fvalid));
+    const bool any_nan =
+        __ballot_sync(kFull, (tvalid && isnan(tscore)) || (fvalid && isnan(fscore))) != 0;
+    auto keyof = [](bool v, float sc) {
+      if (!v) return neg_inf();
+      if (isnan(sc)) return pos_inf();
+      return sc == neg_inf() ? kNegValid : __fadd_rn(sc, 0.f);
+    };
+    float tkey = keyof(tvalid, tscore), fkey = keyof(fvalid, fscore);
+    int n_node = -2, n_state = 0, n_valid = 0;
+    float n_l = neg_inf(), n_g = neg_inf(), n_p2 = neg_inf();
+    for (int r = 0; r < K; ++r) {
+      float key = tkey;
+      int id = tnode, which = 0;  // 0: this lane's tip, 1: its nid candidate
+      if (fkey > key || (fkey == key && fkey > neg_inf() && nid < id)) {
+        key = fkey;
+        id = nid;
+        which = 1;
+      }
+      int src = lane;
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ok = __shfl_xor_sync(kFull, key, o);
+        const int oi = __shfl_xor_sync(kFull, id, o);
+        const int ow = __shfl_xor_sync(kFull, which, o);
+        const int os = __shfl_xor_sync(kFull, src, o);
+        if (ok > key || (ok == key && ok > neg_inf() && (oi < id || (oi == id && os < src)))) {
+          key = ok;
+          id = oi;
+          which = ow;
+          src = os;
+        }
+      }
+      if (!(key > neg_inf())) continue;  // no candidate left: slot stays empty
+      const float vl = __shfl_sync(kFull, which ? m_nid : tlab, src);
+      const float vg = __shfl_sync(kFull, which ? neg_inf() : tgap, src);
+      const float vp = __shfl_sync(kFull, which ? fp2 : tp2, src);
+      const int vs = __shfl_sync(kFull, which ? fstate : (lane < K ? bm.state[lane] : 0), src);
+      if (lane == r) {
+        n_node = id;
+        n_l = vl;
+        n_g = vg;
+        n_p2 = vp;
+        n_state = vs;
+        n_valid = 1;
+      }
+      if (lane == src) {
+        if (which) fkey = neg_inf();
+        else tkey = neg_inf();
+      }
+    }
+    __syncwarp();
+    if (lane < K) {
+      bm.node[lane] = n_node;
+      bm.state[lane] = n_state;
+      bm.valid[lane] = n_valid;
+      bm.p1l[lane] = n_l;
+      bm.p1g[lane] = n_g;
+      bm.p2m[lane] = n_p2;
+    }
+    __syncwarp();
+    err = overflow ? kOverflow : ((cnt >= 2 && any_nan) ? kIncomparable : (cnt == 0 ? kRanOut : 0));
+  }
+
+  // ---- traceback: slot 0's parent chain, leaf first, -1 padded ----
+  if (lane == 0) {
+    int* row = labels_rev + (size_t)b * T1;
+    int cur = bm.node[0];
+    int n = 0;
+    while (cur >= 0 && n < T1) {
+      row[n++] = tr.label[cur];
+      cur = tr.parent[cur];
+    }
+    count_out[b] = n;
+    err_out[b] = err;
+    for (int i = n; i < T1; ++i) row[i] = -1;
+  }
+}
+
+template <bool CRF>
+cudaError_t launch(const float* l1, const float* l2, const float* root_gap, const int* lo,
+                   const int* hi, const int* init_states, const int* lengths, float thr,
+                   int B, int T1, int T2, int S, int A, int K, int N, int W, int Wr,
+                   int needs_ext, int collapse, int* scratch, long long stride,
+                   int* labels_rev, int* count, int* err, cudaStream_t st) {
+  duplex_exact_kernel<CRF><<<B, kLanes, 0, st>>>(
+      l1, l2, root_gap, lo, hi, init_states, lengths, thr, B, T1, T2, S, A, K, N, W, Wr,
+      needs_ext, collapse, scratch, stride, labels_rev, count, err);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// int32 words of one pair's tree and bands (see the layout above).
+long long ctc_duplex_exact_stride(int N, int A, int W) {
+  return 5LL * N + (long long)(N + 1) * A + 2LL * N * W;
+}
+
+// Launch the exact duplex beam on `stream`.  l1 [B, T1, A+1] / l2 [B, T2,
+// A+1] (crf = 0) or [B, T, S, A+1] (crf = 1) f32 log probs, root_gap [B, Wr]
+// f32; lo, hi [B, T1], init_states, lengths [B] i32; scratch [B, stride] i32
+// (stride >= ctc_duplex_exact_stride(N, A, W), contents ignored); outputs
+// labels_rev [B, T1], count [B], err [B] (i32).  K*A <= 32.  All device
+// memory allocated by the caller.  Returns the launch's cudaError_t.
+int ctc_duplex_exact_launch(const float* l1, const float* l2, const float* root_gap,
+                            const int* lo, const int* hi, const int* init_states,
+                            const int* lengths, float thr, int B, int T1, int T2, int S,
+                            int A, int K, int N, int W, int Wr, int needs_ext, int collapse,
+                            int crf, int* scratch, long long stride, int* labels_rev,
+                            int* count, int* err, void* stream) {
+  if (B <= 0) return 0;
+  if (K < 1 || A < 1 || K * A > kLanes || N < 1 || W < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (crf)
+    return launch<true>(l1, l2, root_gap, lo, hi, init_states, lengths, thr, B, T1, T2, S, A,
+                        K, N, W, Wr, needs_ext, 0, scratch, stride, labels_rev, count, err, st);
+  return launch<false>(l1, l2, root_gap, lo, hi, init_states, lengths, thr, B, T1, T2, 1, A, K,
+                       N, W, Wr, needs_ext, collapse, scratch, stride, labels_rev, count, err,
+                       st);
+}
+
+}  // extern "C"

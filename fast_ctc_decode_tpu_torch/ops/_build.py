@@ -136,24 +136,38 @@ def load_library():
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        lib = ctypes.CDLL(build().path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ctc_beam_ids_launch.restype = i
-        lib.ctc_beam_ids_launch.argtypes = [
-            p, p, ctypes.c_float, i, i, i, i, i, p, p, p, p,
-        ]
-        lib.ctc_traceback_launch.restype = i
-        lib.ctc_traceback_launch.argtypes = [p, p, i, i, i, i, p, p, p, p]
-        lib.ctc_crf_beam_ids_launch.restype = i
-        lib.ctc_crf_beam_ids_launch.argtypes = [
-            p, p, p, ctypes.c_float, i, i, i, i, i, i, p, p, p, p,
-        ]
-        lib.ctc_exact_beam_launch.restype = i
-        lib.ctc_exact_beam_launch.argtypes = [
-            p, p, p, ctypes.c_float, i, i, i, i, i, i, i, i, i,
-            p, ctypes.c_longlong, p, p, p, p, p,
-        ]
-        lib.ctc_cuda_error_string.restype = ctypes.c_char_p
-        lib.ctc_cuda_error_string.argtypes = [i]
-        _LIB = lib
+        _LIB = bind(ctypes.CDLL(build().path))
         return _LIB
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: argtypes of every launch function (all return an int cudaError_t)
+SIGNATURES = {
+    "ctc_beam_ids_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ctc_traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ctc_crf_beam_ids_launch": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ctc_exact_beam_launch": [
+        _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, ctypes.c_longlong, _P, _P, _P, _P, _P,
+    ],
+    "ctc_duplex_slot_launch": [
+        _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+    ],
+    "ctc_duplex_exact_launch": [
+        _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, ctypes.c_longlong, _P, _P, _P, _P,
+    ],
+}
+
+
+def bind(lib):
+    """Declare the C signatures of the launch functions on the ctypes
+    library ``lib``."""
+    for name in SIGNATURES:
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = SIGNATURES[name]
+    lib.ctc_cuda_error_string.restype = ctypes.c_char_p
+    lib.ctc_cuda_error_string.argtypes = [_I]
+    return lib

@@ -94,7 +94,8 @@ def _allocate_nodes(carry, needs_new, t, active, N):
     in reference add_node order (tip-major, labels ascending).
 
     Returns (new_id [B, K, A] i32, -1 where nothing was made; the updated
-    parent/label/time/child/n_nodes; overflow [B]).  Writes that do not
+    parent/label/time/child/n_nodes; overflow [B]).  ``carry.time`` may be
+    None (the duplex tree carries no emit times).  Writes that do not
     allocate go to the dump column N / dump row N + 1.  The tables are
     updated in place (a copy per step would move the whole tree through
     memory T times).
@@ -115,7 +116,9 @@ def _allocate_nodes(carry, needs_new, t, active, N):
     idx = torch.where(upd_ok, new_id_flat, N)
     parent = carry.parent.scatter_(1, idx, tip_flat)
     label = carry.label.scatter_(1, idx, lbl_flat.contiguous())
-    time = carry.time.scatter_(1, idx, torch.full_like(tip_flat, t))
+    time = carry.time
+    if time is not None:  # the duplex tree records no emit times
+        time = time.scatter_(1, idx, torch.full_like(tip_flat, t))
     crow = torch.where(upd_ok, tip_flat.long() + 1, N + 1)
     carry.child.view(B, (N + 2) * A).scatter_(
         1, crow * A + lbl_flat.long(), new_id_flat.to(torch.int32)

@@ -12,7 +12,7 @@ ctypes on PyTorch's current stream:
    ``beam_pallas.py::_traceback_kernel`` plus the key sort of
    ``beam_fast._sort_unpack_keys``: a direct walk of the id log, one thread
    per read.  Plain version: ``beam_fast._traceback_scan_batch``.  It walks
-   the CRF id log too (same id coding).
+   the CRF id log and the duplex slot kernel's id log too (same id coding).
  - ``crf_beam_ids_kernel`` (``csrc/crf_beam_kernel.cu``) replaces
    ``beam_pallas.py::_crf_beam_kernel``: the CRF instances of the fused
    beam, one thread per read, each tip loading its own state's row.  Plain
@@ -165,13 +165,21 @@ def _crf_bounds(S, Si, A):
 
 def traceback_kernel(fin, ids_log, *, T, K, A):
     """Walk the [T, K, B] id log: ``(labels_rev [B, T], times_rev [B, T],
-    count [B])``, all int32, emits leaf-first and -1 padded."""
+    count [B])``, all int32, emits leaf-first and -1 padded.
+
+    Any position-coded log: the 1D and CRF beams' and the duplex slot
+    kernel's (``ops/duplex_cuda.py``, where K*A <= 32 but K or A+1 may pass
+    the beam kernels' 16 / 8).  The walk keeps no per-thread arrays, so its
+    only bound is int32 node ids: T*K*A < 2**31."""
     if not isinstance(ids_log, torch.Tensor) or ids_log.dim() != 3:
         raise ValueError("ids_log must be a [T, K, B] torch.Tensor")
     B = ids_log.shape[2]
     _check(ids_log, "ids_log", torch.int32, (T, K, B), ids_log.device)
     _check(fin, "fin", torch.int32, (B,), ids_log.device)
-    _bounds(T, K, A)
+    if K < 1 or A < 1:
+        raise ValueError(f"K and A must be >= 1, got {K}, {A}")
+    if T * K * A > beam_fast._I32_MAX:
+        raise ValueError("T * beam_size * A overflows the int32 node ids")
     if ids_log.device.type == "cpu":
         return traceback_plain(fin, ids_log, T=T, K=K, A=A)
     dev = ids_log.device

@@ -1,0 +1,245 @@
+"""The PyTorch port's duplex entry points against the JAX package and the oracle.
+
+``fast_ctc_decode_tpu_torch.api.beam_search_duplex`` / ``crf_beam_search_duplex``
+must raise the JAX ``api``'s exception types with its messages on the
+error probes (envelope type, dtype, rank, shape, negative values; max_nodes
+with "fast"; unknown engine; mismatched axes) and give tests/oracle.py's
+sequences.  ``BatchDuplexDecoder`` / ``BatchCrfDuplexDecoder`` equal the
+single-read API pair by pair, on every engine the CPU runs, and
+``decode_many_duplex`` resumes a checkpoint the JAX package wrote (its meta
+keys and values are the JAX package's), finishing with the JAX package's
+results.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import oracle
+from duplex_helpers import diag_env, random_data
+from fast_ctc_decode_tpu import api as jax_api
+from fast_ctc_decode_tpu.parallel import pipeline as jax_pipeline
+from fast_ctc_decode_tpu_torch import BatchCrfDuplexDecoder, BatchDuplexDecoder
+from fast_ctc_decode_tpu_torch import api as port_api
+from fast_ctc_decode_tpu_torch import decode_many_duplex, errors
+from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
+from fast_ctc_decode_tpu_torch.parallel import pipeline as port_pipeline
+
+torch.set_num_threads(1)
+
+ALPHA = "NACGT"
+T1, T2 = 12, 14
+
+
+def pair(seed, t1=T1, t2=T2, A1=5):
+    return random_data(t1, A1, seed), random_data(t2, A1, 900 + seed)
+
+
+def crf_pair(seed, S=16, A1=5, t1=T1, t2=T2):
+    rng = np.random.RandomState(seed)
+    n1 = rng.rand(t1, S, A1).astype(np.float32)
+    n2 = rng.rand(t2, S, A1).astype(np.float32)
+    return (n1 / n1.sum(-1, keepdims=True), rng.rand(S).astype(np.float32),
+            n2 / n2.sum(-1, keepdims=True), rng.rand(S).astype(np.float32))
+
+
+def outcome(fn, *args, **kw):
+    try:
+        return ("ok", fn(*args, **kw))
+    except Exception as exc:  # the probe compares type and message
+        return (type(exc).__name__, str(exc))
+
+
+P1, P2 = pair(1)
+C1, I1, C2, I2 = crf_pair(2)
+ENV = diag_env(T1, T2, 3)
+
+PROBES = [
+    ("envelope_list", (P1, P2, ALPHA), dict(envelope=ENV.tolist())),
+    ("envelope_float", (P1, P2, ALPHA), dict(envelope=ENV.astype(np.float32))),
+    ("envelope_rank", (P1, P2, ALPHA), dict(envelope=ENV.reshape(-1))),
+    ("envelope_rows", (P1, P2, ALPHA), dict(envelope=ENV[:-1])),
+    ("envelope_cols", (P1, P2, ALPHA), dict(envelope=np.zeros((T1, 3), np.int64))),
+    ("envelope_negative", (P1, P2, ALPHA), dict(envelope=ENV - 5)),
+    ("max_nodes_fast", (P1, P2, ALPHA), dict(engine="fast", max_nodes=100)),
+    ("unknown_engine", (P1, P2, ALPHA), dict(engine="pallas")),
+    ("inner_axes", (P1, P2[:, :4], ALPHA), {}),
+    ("alphabet", (P1, P2, "NACG"), {}),
+    ("beam_zero", (P1, P2, ALPHA), dict(beam_size=0)),
+    ("threshold", (P1, P2, ALPHA), dict(beam_cut_threshold=0.5)),
+    ("f64", (P1.astype(np.float64), P2, ALPHA), {}),
+]
+
+
+@pytest.mark.parametrize("name,args,kw", PROBES, ids=[p[0] for p in PROBES])
+def test_duplex_error_probes_match_jax(name, args, kw):
+    got = outcome(port_api.beam_search_duplex, *args, **kw)
+    want = outcome(jax_api.beam_search_duplex, *args, **kw)
+    assert got[0] != "ok" and got == want
+
+
+CRF_PROBES = [
+    ("envelope_float", dict(envelope=ENV.astype(np.float32))),
+    ("envelope_negative", dict(envelope=ENV - 5)),
+    ("max_nodes_fast", dict(engine="fast", max_nodes=100)),
+    ("unknown_engine", dict(engine="exact-pallas")),
+    ("beam_zero", dict(beam_size=0)),
+]
+
+
+@pytest.mark.parametrize("name,kw", CRF_PROBES, ids=[p[0] for p in CRF_PROBES])
+def test_crf_duplex_error_probes_match_jax(name, kw):
+    args = (C1, I1, C2, I2, ALPHA)
+    got = outcome(port_api.crf_beam_search_duplex, *args, **kw)
+    want = outcome(jax_api.crf_beam_search_duplex, *args, **kw)
+    assert got[0] != "ok" and got == want
+    got = outcome(port_api.crf_beam_search_duplex, C1[:, :, :4], I1, C2, I2, ALPHA)
+    assert got == outcome(jax_api.crf_beam_search_duplex, C1[:, :, :4], I1, C2, I2, ALPHA)
+
+
+def test_invalid_envelope_raises_the_reference_error():
+    bad = ENV.copy()
+    bad[4, 1] = bad[4, 0]
+    for engine in (None, "fast", "exact"):
+        with pytest.raises(errors.SearchError, match="Invalid envelope values"):
+            port_api.beam_search_duplex(P1, P2, ALPHA, envelope=bad, engine=engine)
+
+
+def test_api_equals_oracle_on_every_engine():
+    for seed in (3, 4):
+        p1, p2 = pair(seed)
+        want_full = oracle.beam_search_duplex(p1, p2, ALPHA)
+        want_diag = oracle.beam_search_duplex(p1, p2, ALPHA, envelope=ENV)
+        assert port_api.beam_search_duplex(p1, p2, ALPHA) == want_full  # auto: fast
+        assert port_api.beam_search_duplex(p1, p2, ALPHA, engine="exact") == want_full
+        assert port_api.beam_search_duplex(p1, p2, ALPHA, envelope=ENV) == want_diag  # auto: exact
+    c1, i1, c2, i2 = crf_pair(5)
+    want = oracle.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA)
+    assert port_api.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA) == want
+    want = oracle.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA, envelope=ENV)
+    assert port_api.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA, envelope=ENV) == want
+    # a too small tree budget surfaces as NODE_OVERFLOW
+    with pytest.raises(errors.SearchError, match="node budget"):
+        port_api.beam_search_duplex(P1, P2, ALPHA, envelope=ENV, max_nodes=10)
+
+
+@pytest.mark.parametrize("engine", [None, "fast", "exact"])
+def test_batch_decoder_equals_single_read(engine):
+    ps = [pair(10 + i) for i in range(3)]
+    n1 = np.stack([p[0] for p in ps])
+    n2 = np.stack([p[1] for p in ps])
+    envs = np.stack([diag_env(T1, T2, w) for w in (2, 3, 4)])
+    dec = BatchDuplexDecoder(ALPHA, T1=T1, T2=T2, engine=engine)
+    for env in (None, ENV, envs):
+        lengths = np.array([T1, 7, 0], np.int32)
+        got = dec.decode(n1, n2, envelopes=env, lengths=lengths)
+        for b in range(3):
+            e = None if env is None else (env if env.ndim == 2 else env[b])
+            want = port_api.beam_search_duplex(
+                ps[b][0][: lengths[b]], ps[b][1], ALPHA,
+                envelope=None if e is None else e[: lengths[b]],
+                engine=engine or ("fast" if env is None else "exact"),
+            )
+            assert got[b] == (want, errors.OK)
+    out = dec.decode_arrays(n1, n2)
+    assert out["labels_rev"].dtype == torch.int32 and tuple(out["labels_rev"].shape) == (3, T1)
+
+
+def test_crf_batch_decoder_equals_single_read():
+    cs = [crf_pair(20 + i) for i in range(2)]
+    stack = lambda i: np.stack([c[i] for c in cs])  # noqa: E731
+    for engine, env in ((None, None), (None, ENV), ("fast", ENV), ("exact", None)):
+        dec = BatchCrfDuplexDecoder(ALPHA, T1=T1, T2=T2, n_state=16, engine=engine)
+        got = dec.decode(stack(0), stack(1), stack(2), stack(3), envelopes=env)
+        for b in range(2):
+            want = port_api.crf_beam_search_duplex(
+                *cs[b], ALPHA, envelope=env,
+                engine=engine or ("fast" if env is None else "exact"),
+            )
+            assert got[b] == (want, errors.OK)
+
+
+def test_decoder_engine_checks():
+    with pytest.raises(ValueError, match="unknown engine"):
+        BatchDuplexDecoder(ALPHA, T1=4, T2=4, engine="pallas")
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        BatchDuplexDecoder(ALPHA, T1=4, T2=4, engine="cuda")
+    with pytest.raises(ValueError, match="unknown engine"):
+        BatchCrfDuplexDecoder(ALPHA, T1=4, T2=4, n_state=4, engine="cuda")
+
+
+def test_auto_engine_routing_on_a_cuda_device(monkeypatch):
+    """Auto on a CUDA device, for the batch decoders and the API alike: a
+    constant window runs the slot kernel while its shared memory holds the
+    band and the tree kernel past it; a moving window the tree kernel; a CRF
+    constant window the plain CRF slot engine.  Past the lanes both kernels
+    share (beam * A > 32) the chosen kernel raises.  The callers are handed a
+    CUDA device; a spy runs each chosen engine on the CPU tensors, where the
+    kernel wrappers check the same bounds before their plain versions."""
+    seen = []
+    run = port_pipeline.run_duplex_engine
+
+    def spy(engine, batch, device, **kw):
+        assert torch.device(device).type == "cuda"
+        seen.append(engine)
+        return run(engine, batch, "cpu", **kw)
+
+    monkeypatch.setattr(port_pipeline, "run_duplex_engine", spy)
+    cuda = torch.device("cuda")
+
+    def route(beam=5, env=None, crf=False):
+        seen.clear()
+        if crf:
+            dec = BatchCrfDuplexDecoder(ALPHA, T1=T1, T2=T2, n_state=16, beam_size=beam)
+            monkeypatch.setattr(dec, "device", cuda)
+            got = dec.decode(C1[None], I1[None], C2[None], I2[None], envelopes=env)
+            one = port_api.crf_beam_search_duplex(C1, I1, C2, I2, ALPHA, envelope=env,
+                                                  beam_size=beam, device="cuda")
+        else:
+            dec = BatchDuplexDecoder(ALPHA, T1=T1, T2=T2, beam_size=beam)
+            monkeypatch.setattr(dec, "device", cuda)
+            got = dec.decode(P1[None], P2[None], envelopes=env)
+            one = port_api.beam_search_duplex(P1, P2, ALPHA, envelope=env, beam_size=beam,
+                                              device="cuda")
+        assert got == [(one, errors.OK)] and seen[0] == seen[1]
+        return seen[0]
+
+    assert route() == "cuda"
+    assert route(env=ENV) == "exact"
+    assert route(crf=True) == "fast"
+    assert route(env=ENV, crf=True) == "exact"
+    limit = duplex_cuda.SMEM_LIMIT
+    monkeypatch.setattr(duplex_cuda, "SMEM_LIMIT", 8 * 5 * 4 * (T2 + 2) - 4)
+    assert route() == "exact"  # the band no longer fits the slot kernel
+    assert route(beam=4) == "cuda"
+    assert route(crf=True) == "fast"
+    monkeypatch.setattr(duplex_cuda, "SMEM_LIMIT", limit)
+    with pytest.raises(ValueError, match=r"must be in \[1, 32\] for the duplex CUDA kernel"):
+        route(beam=9)
+    batch = port_pipeline.prep_duplex_batch(P1[None], P2[None], None, None, 0.0, T1=T1, T2=T2)
+    with pytest.raises(ValueError, match=r"must be in \[1, 32\] for the exact duplex CUDA"):
+        duplex_exact_cuda.duplex_exact_kernel_batch(
+            *batch.tensors("cpu"), beam_size=9, collapse_repeats=True,
+            max_nodes=batch.max_nodes(9), W=batch.W, needs_ext=batch.tree_needs_ext, crf=False,
+        )
+
+
+def test_decode_many_duplex_resumes_a_jax_checkpoint(tmp_path):
+    rng = np.random.RandomState(6)
+    pairs = []
+    for i in range(6):
+        t1 = 14 if i == 0 else int(rng.randint(5, 15))  # pair 0 fixes the bucket edges
+        t2 = 16 if i == 0 else int(rng.randint(6, 17))
+        p1, p2 = pair(40 + i, t1, t2)
+        pairs.append((p1, p2, diag_env(t1, t2, 3)) if i % 2 else (p1, p2))
+    kw = dict(beam_size=5, beam_cut_threshold=0.0, batch_size=8)
+    want = jax_pipeline.decode_many_duplex(pairs, ALPHA, **kw)
+    ckpt = os.path.join(tmp_path, "duplex.jsonl")
+    half = jax_pipeline.decode_many_duplex(pairs[:3], ALPHA, checkpoint_path=ckpt, **kw)
+    assert half == want[:3]
+    got = decode_many_duplex(pairs, ALPHA, checkpoint_path=ckpt, **kw)
+    assert got == want
+    assert decode_many_duplex(pairs, ALPHA, **kw) == want  # uninterrupted, in the port
+    assert all(e == errors.OK for _, e in got)

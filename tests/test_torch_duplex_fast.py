@@ -1,0 +1,281 @@
+"""The PyTorch port's slot-band duplex engine (plain and CRF) against the JAX package.
+
+Contract: ``fast_ctc_decode_tpu_torch.ops.duplex_fast.duplex_fast_batch``
+builds band cells one after another in the reference's order, where the JAX
+package's ``duplex_fast_batch`` uses an associative scan, so the two meet at
+the level of the engine's contract: every pair's sequence
+(``labels_rev[:count]``) and status code are equal (tolerance: none), on
+each envelope class of the JAX engine (static full range, window-relative
+monotone lower bounds, general circular), with dipping upper bounds, invalid
+envelopes, zero-probability rows, ragged and zero lengths.  On constant
+windows the port also equals ``tests/oracle.py``.  The JAX package's Pallas
+slot kernel runs once in interpret mode and gives the same sequences.  The
+wrapper of the CUDA slot kernel (``ops/duplex_cuda.py``) runs the plain
+engine on CPU tensors, refuses inputs outside its bounds, and the 1D
+beam's traceback walks its id log at the widths it admits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import oracle
+from duplex_helpers import diag_env, random_data
+from fast_ctc_decode_tpu.ops import duplex as jax_dx
+from fast_ctc_decode_tpu.ops import duplex_fast as jax_df
+from fast_ctc_decode_tpu.ops import duplex_pallas as jax_dp
+from fast_ctc_decode_tpu_torch import errors
+from fast_ctc_decode_tpu_torch.ops import beam_cuda, duplex_cuda
+from fast_ctc_decode_tpu_torch.ops import duplex as port_dx
+from fast_ctc_decode_tpu_torch.ops import duplex_fast as port_df
+
+torch.set_num_threads(1)
+
+T1, T2, B = 16, 18, 3
+ALPHA = "NACGT"
+
+
+def pairs(seed, A1=5, b=B, t1=T1, t2=T2):
+    n1 = np.stack([random_data(t1, A1, seed * 10 + i) for i in range(b)])
+    n2 = np.stack([random_data(t2, A1, 500 + seed * 10 + i) for i in range(b)])
+    return n1, n2
+
+
+def crf_pairs(seed, S, A1, b=B, t1=12, t2=14):
+    rng = np.random.RandomState(seed)
+    n1 = rng.rand(b, t1, S, A1).astype(np.float32)
+    n2 = rng.rand(b, t2, S, A1).astype(np.float32)
+    n1 /= n1.sum(-1, keepdims=True)
+    n2 /= n2.sum(-1, keepdims=True)
+    return n1, rng.rand(b, S).astype(np.float32), n2, rng.rand(b, S).astype(np.float32)
+
+
+def full_env(t1=T1, t2=T2):
+    return np.stack([np.zeros(t1, np.int64), np.full(t1, t2, np.int64)], 1)
+
+
+def prepared(n1, n2, envs, thr, crf_inits=None):
+    """Inputs of both engines, as the JAX pipeline prepares them."""
+    b, t1 = n1.shape[:2]
+    t2 = n2.shape[1]
+    envs = np.broadcast_to(envs, (b, t1, 2)) if envs.ndim == 2 else envs
+    eps = [jax_df._prep_envelope_fast(np.asarray(e), t2) for e in envs]
+    l1, l2, lt = port_df.log_inputs(n1, n2, thr)
+    Wr = max(e.Wr for e in eps)
+    if crf_inits is None:
+        rg = port_df.root_gap_host(l2, [e.Wr for e in eps], Wr)
+        init = np.zeros(b, np.int32)
+    else:
+        rg = port_df.crf_root_gap_host(l2, crf_inits[1], [e.Wr for e in eps], Wr)
+        init = np.argmax(crf_inits[0], 1).astype(np.int32)
+    lo = np.stack([e.lo for e in eps])
+    hi = np.stack([e.hi for e in eps])
+    return eps, l1, l2, lt, rg, lo, hi, init
+
+
+def seqs(out):
+    res = []
+    for b in range(len(out["count"])):
+        n = int(out["count"][b])
+        labs = np.asarray(out["labels_rev"][b])[:n]
+        res.append(("".join(ALPHA[int(l) + 1] for l in labs[::-1]), int(out["err"][b])))
+    return res
+
+
+def run_both(n1, n2, envs, thr=0.0, K=5, collapse=True, lengths=None, crf_inits=None):
+    eps, l1, l2, lt, rg, lo, hi, init = prepared(n1, n2, envs, thr, crf_inits)
+    b = n1.shape[0]
+    lengths = np.full((b,), n1.shape[1], np.int32) if lengths is None else np.asarray(lengths, np.int32)
+    static = all(e.static_window for e in eps)
+    want = jax_df.duplex_fast_batch(
+        l1, l2, rg, lo, hi, lt, init, lengths, beam_size=K, collapse_repeats=collapse,
+        W=max(e.W for e in eps), Wr=rg.shape[1], Wext=max(e.Wext for e in eps),
+        needs_ext=any(e.needs_ext for e in eps), crf=crf_inits is not None,
+        static_window=static, rel_window=all(e.rel_window for e in eps) and not static,
+        D=max(e.D for e in eps),
+    )
+    T = torch.from_numpy
+    got = port_df.duplex_fast_batch(
+        T(l1), T(l2), T(rg), T(lo), T(hi), lt, T(init), T(lengths), beam_size=K,
+        collapse_repeats=collapse, needs_ext=any(e.needs_ext for e in eps),
+        crf=crf_inits is not None,
+    )
+    for k in ("labels_rev", "count", "err"):
+        assert got[k].dtype == torch.int32, k
+    assert tuple(got["labels_rev"].shape) == (b, n1.shape[1])
+    return seqs(want), seqs({k: v.numpy() for k, v in got.items()})
+
+
+def dipping_env():
+    env = diag_env(T1, T2, 3)
+    env[6:9, 1] -= 2  # the upper bound dips, then recovers
+    env[:, 1] = np.maximum(env[:, 1], env[:, 0] + 1)
+    return env
+
+
+def nonmonotone_env():
+    env = diag_env(T1, T2, 4)
+    env[9, 0] = max(env[9, 0] - 2, 0)  # a lower bound that steps back
+    return env
+
+
+def invalid_env():
+    env = diag_env(T1, T2, 3)
+    env[5, 1] = env[5, 0]  # lo >= hi at step 5
+    return env
+
+
+ENVS = [
+    ("full", full_env()),
+    ("diag", diag_env(T1, T2, 3)),
+    ("dipping_upper", dipping_env()),
+    ("nonmonotone_lower", nonmonotone_env()),
+    ("invalid", invalid_env()),
+]
+
+
+@pytest.mark.parametrize(
+    "name,env",
+    ENVS + [
+        ("offset_window", np.stack([np.full(T1, 3), np.full(T1, 11)], 1)),
+        ("past_T2", diag_env(T1, T2, 3) + [0, 9]),
+        ("one_step", full_env(1, T2)),
+    ],
+)
+def test_envelope_prep_equals_jax(name, env):
+    # the fields the port reads, for the slot and the tree engines
+    got, want = port_df._prep_envelope_fast(env, T2), jax_df._prep_envelope_fast(env, T2)
+    for f in port_df.EnvPrep._fields:
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    got, want = port_dx._prep_envelope(env, T2), jax_dx._prep_envelope(env, T2)
+    for g, w in zip(got, want[:5]):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("name,env", ENVS)
+def test_fast_equals_jax_per_envelope_class(name, env):
+    want, got = run_both(*pairs(1), env)
+    assert got == want
+    if name == "invalid":
+        assert {e for _, e in got} == {errors.INVALID_ENVELOPE}
+
+
+def test_fast_equals_jax_threshold_collapse_off_ragged_per_pair():
+    n1, n2 = pairs(2)
+    envs = np.stack([diag_env(T1, T2, w) for w in (2, 3, 5)])
+    want, got = run_both(n1, n2, envs, thr=0.05, collapse=False, lengths=[16, 0, 7])
+    assert got == want
+    assert got[1] == ("", errors.OK)
+
+
+def test_fast_equals_jax_zero_probability_rows():
+    # zero rows of either network keep the beam (valid -inf candidates stay
+    # selectable); the JAX engine's own case is tests/test_fast_duplex.py
+    n1, n2 = pairs(3)
+    n1[0, 3:5] = 0.0
+    n1[1, 2] = 0.0
+    n2[2, 5:8] = 0.0
+    want, got = run_both(n1, n2, full_env())
+    assert got == want
+    assert {e for _, e in got} == {errors.OK}
+
+
+@pytest.mark.parametrize("S,A1", [(16, 5), (9, 4)])
+def test_crf_fast_equals_jax(S, A1):
+    n1, i1, n2, i2 = crf_pairs(4 + S, S, A1)
+    for env in (full_env(12, 14), diag_env(12, 14, 3)):
+        want, got = run_both(n1, n2, env, crf_inits=(i1, i2))
+        assert got == want
+
+
+def test_fast_equals_oracle_on_constant_windows():
+    n1, n2 = pairs(5)
+    offset = np.stack([np.zeros(T1, np.int64), np.full(T1, 11, np.int64)], 1)
+    for env in (full_env(), offset):
+        _, got = run_both(n1, n2, env)
+        for b in range(B):
+            assert got[b] == (oracle.beam_search_duplex(n1[b], n2[b], ALPHA, envelope=env), 0)
+    n1, i1, n2, i2 = crf_pairs(6, 16, 5)
+    _, got = run_both(n1, n2, full_env(12, 14), crf_inits=(i1, i2))
+    for b in range(B):
+        want = oracle.crf_beam_search_duplex(n1[b], i1[b], n2[b], i2[b], ALPHA)
+        assert got[b] == (want, 0)
+
+
+def test_jax_pallas_slot_kernel_interpret_equals_port():
+    n1, n2 = pairs(7)
+    env = diag_env(T1, T2, 3)
+    eps, l1, l2, lt, rg, lo, hi, init = prepared(n1, n2, env, 0.0)
+    ep = eps[0]
+    lengths = np.full((B,), T1, np.int32)
+    po = jax_dp.duplex_pallas_batch(
+        l1, l2, rg, ep.lo, ep.hi, lt, lengths, beam_size=5, collapse_repeats=True,
+        W=ep.W, D=ep.D, needs_ext=ep.needs_ext, block_t=8, block_b=8, interpret=True,
+    )
+    T = torch.from_numpy
+    got = duplex_cuda.duplex_kernel_batch(
+        T(l1), T(l2), T(rg), T(lo), T(hi), lt, T(lengths), beam_size=5,
+        collapse_repeats=True, needs_ext=ep.needs_ext,
+    )
+    assert seqs({k: v.numpy() for k, v in got.items()}) == seqs(po)
+
+
+def test_kernel_wrapper_runs_plain_on_cpu():
+    n1, n2 = pairs(8)
+    env = diag_env(T1, T2, 3)
+    eps, l1, l2, lt, rg, lo, hi, init = prepared(n1, n2, env, 0.1)
+    T = torch.from_numpy
+    lengths = T(np.array([16, 9, 0], np.int32))
+    args = (T(l1), T(l2), T(rg), T(lo), T(hi), lt)
+    duplex_cuda.reset_launches()
+    got = duplex_cuda.duplex_kernel_batch(*args, lengths, beam_size=4, collapse_repeats=True,
+                                          needs_ext=eps[0].needs_ext)
+    want = port_df.duplex_fast_batch(*args, T(init), lengths, beam_size=4, collapse_repeats=True,
+                                     needs_ext=eps[0].needs_ext, crf=False)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert duplex_cuda.launches == {"duplex": 0}  # the plain version counts nothing
+
+
+def test_kernel_wrapper_bounds():
+    n1, n2 = pairs(9, A1=5)
+    T = torch.from_numpy
+    eps, l1, l2, lt, rg, lo, hi, init = prepared(n1, n2, full_env(), 0.0)
+    lengths = torch.full((B,), T1, dtype=torch.int32)
+    args = (T(l1), T(l2), T(rg), T(lo), T(hi), lt, lengths)
+    kw = dict(collapse_repeats=True, needs_ext=False)
+    # K*A <= 32: beam 8 over 4 labels is the widest, beam 9 is refused
+    assert duplex_cuda.duplex_ids_kernel(*args, beam_size=8, **kw)[0].shape == (T1, 8, B)
+    with pytest.raises(ValueError, match="must be in"):
+        duplex_cuda.duplex_ids_kernel(*args, beam_size=9, **kw)
+    # a lower bound that steps back is outside the kernel's envelope class
+    _, _, _, _, _, lo2, hi2, _ = prepared(n1, n2, nonmonotone_env(), 0.0)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        duplex_cuda.duplex_ids_kernel(T(l1), T(l2), T(rg), T(lo2), T(hi2), lt, lengths,
+                                      beam_size=5, **kw)
+    # bands beyond the shared memory of one block
+    lo_w = torch.zeros((1, 2), dtype=torch.int32)
+    hi_w = torch.full((1, 2), 2000, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        duplex_cuda.duplex_ids_kernel(torch.zeros((1, 2, 5)), torch.zeros((1, 2000, 5)),
+                                      torch.zeros((1, 3)), lo_w, hi_w, 0.0,
+                                      torch.ones(1, dtype=torch.int32), beam_size=5, **kw)
+    with pytest.raises(TypeError):
+        duplex_cuda.duplex_ids_kernel(T(l1).double(), *args[1:], beam_size=5, **kw)
+
+
+def test_traceback_walks_the_duplex_id_log_at_its_widths():
+    # beam 8 over A+1 = 5 and beam 2 over A+1 = 17 pass the 1D kernels'
+    # bounds (16 / 8) but not K*A <= 32; the traceback takes any of them
+    for K, A1 in ((8, 5), (2, 17)):
+        n1, n2 = pairs(10, A1=A1)
+        eps, l1, l2, lt, rg, lo, hi, init = prepared(n1, n2, diag_env(T1, T2, 3), 0.0)
+        T = torch.from_numpy
+        ids, fin, _ = duplex_cuda.duplex_ids_kernel(
+            T(l1), T(l2), T(rg), T(lo), T(hi), lt, torch.full((B,), T1, dtype=torch.int32),
+            beam_size=K, collapse_repeats=True, needs_ext=eps[0].needs_ext,
+        )
+        got = beam_cuda.traceback_kernel(fin, ids, T=T1, K=K, A=A1 - 1)
+        want = beam_cuda.traceback_plain(fin, ids, T=T1, K=K, A=A1 - 1)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert int(got[2].min()) > 0

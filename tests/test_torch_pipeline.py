@@ -148,6 +148,7 @@ def test_port_imports_no_jax():
         "import fast_ctc_decode_tpu_torch as m\n"
         "from fast_ctc_decode_tpu_torch import api\n"
         "from fast_ctc_decode_tpu_torch.ops import beam, crf, viterbi, beam_exact_cuda\n"
+        "from fast_ctc_decode_tpu_torch.ops import duplex, duplex_fast, duplex_cuda, duplex_exact_cuda\n"
         "from fast_ctc_decode_tpu_torch.parallel import pipeline\n"
         "c = np.random.RandomState(1).rand(12, 4, 5).astype(np.float32)\n"
         "s = np.full((4,), 0.25, np.float32)\n"
@@ -157,6 +158,11 @@ def test_port_imports_no_jax():
         "x = np.random.RandomState(0).rand(2, 20, 5).astype(np.float32)\n"
         "r = m.BatchBeamDecoder('NACGT', T=20, beam_cut_threshold=0.1).decode(x, np.array([20, 9]))\n"
         "assert len(r) == 2 and r[0][2] == 0\n"
+        "e = np.stack([np.zeros(12, np.int64), np.minimum(np.arange(12) + 3, 12)], 1)\n"
+        "assert api.beam_search_duplex(c[:, 0], c[:, 1], 'NACGT', envelope=e)\n"
+        "assert api.crf_beam_search_duplex(c, s, c, s, 'NACGT', beam_cut_threshold=0.01)\n"
+        "d = m.BatchDuplexDecoder('NACGT', T1=12, T2=12).decode(c[None, :, 0], c[None, :, 1])\n"
+        "assert d[0][1] == 0 and m.decode_many_duplex([(c[:, 0], c[:, 1], e)], 'NACGT')[0][1] == 0\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'fast_ctc_decode_tpu' or k.startswith('fast_ctc_decode_tpu.')]\n"
         "print('LEAKED', bad)\n"
