@@ -10,8 +10,9 @@ Phases, each of which raises on failure (exit code non-zero):
      (sm_90a, one compiler per source, all at once) and prints the card, the
      versions, the build time and ptxas's register/spill lines;
   2. holds each 1D kernel against its plain PyTorch version on the card, bit
-     for bit, on the shapes of the CPU tests (a +-inf batch included) and at
-     B=1024, T=1000;
+     for bit: the three versions of the beam kernel (1, 2 = the default, 3)
+     and the traceback, on the shapes of the CPU tests (a +-inf/NaN batch,
+     -0.0, zero lengths, beams 1/8/12/16, A+1 = 8) and at B=1024, T=1000;
   2b. the same for the CRF beam kernel and the exact tree kernel (1D and
      CRF): NaN, empty beams, zero lengths, overflow through a small
      ``max_nodes``, -0.0 entries, beams 8/16, S = 9, and at full width;
@@ -56,10 +57,27 @@ Phases, each of which raises on failure (exit code non-zero):
   12. times each duplex kernel beside its plain version on the same
      full-width shape (CUDA events; the plain versions once, they take
      tens of seconds) and the duplex decoders' ``decode_arrays`` / ``decode``,
-     and holds the full-width kernel outputs to the plain ones.
-The line before the last is a JSON object describing the kernels; the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside
-the repository, it exits non-zero and prints no result.
+     and holds the full-width kernel outputs to the plain ones;
+  13. the A/B path (``tools.ab_bench``) at B=32768, T=1000: versions 1, 2
+     and 3 equal on all four fields, each launched; each version's kernel
+     and full pipeline timed, and ``BatchBeamDecoder.decode`` (version 2);
+  14. the ablation path (``tools.kernel_ablate``): each of the nine phase
+     sets on the kernel equals ``ablate_plain`` (fin, err) at B=256, T=200,
+     the unstubbed kernel equals version 1, then all nine are timed at
+     B=16384, T=1000 with their deltas;
+  15. the JSON/HTTP service on the card with micro-batching, on a free
+     127.0.0.1 port: a B=256, T=1000 beam batch request equal to
+     ``BatchBeamDecoder`` (8 reads equal to tests/oracle.py), a viterbi
+     batch request, 64 concurrent single reads (600-1000 frames) equal to
+     ``api.beam_search`` in fewer than 64 micro-batches, a malformed request
+     answered 400 on its own; then ``distributed_init`` (world size 1, NCCL)
+     and ``decode_and_count`` with totals [B, 0].
+The line before the last is a JSON object describing the kernels (one entry
+per TPU kernel, with its launches on its path, its kernel-vs-plain
+difference, its time, its plain version's time and its bound: the larger of
+its bytes over the HBM rate and its f32 operations over the f32 rate); the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
+outside the repository, it exits non-zero and prints no result.
 """
 
 import json
@@ -147,6 +165,56 @@ def median_event_ms(fn, torch, repeats=REPEATS):
     return statistics.median(times)
 
 
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W limit):
+# HBM3 bytes/s and f32 operations/s
+# outside the tensor cores (none of these kernels has a matrix product).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time the card could take for work that
+    moves ``nbytes`` (each input read once, each output written once) and
+    does ``ops`` f32 operations, the larger of the two times."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def beam_step_ops(K, A):
+    """f32 operations of one read-step of the hash beam: K*A extension
+    products, K lab+gap sums, 2K stay/blank products, K tip sums, K + K*A
+    candidate totals, K*(K + K*A) selection compares, 2K divides."""
+    return K * A + K + 2 * K + K + (K + K * A) + K * (K + K * A) + 2 * K
+
+
+def beam_bound(lengths, T, K, A1, *, rows_per_step=1, extra_in=0, out_bytes=None):
+    """Bound of a hash or tree beam over reads of ``lengths`` (a host array):
+    ``rows_per_step`` posterior rows of A1 f32 per read-step (1D: 1; CRF:
+    one per tip, K), the lengths and ``extra_in`` more input bytes; the
+    outputs default to the [T, K, B] id log plus fin and err."""
+    B = len(lengths)
+    steps = int(np.minimum(np.asarray(lengths, np.int64), T).sum())
+    nbytes = steps * rows_per_step * A1 * 4 + B * 4 + extra_in
+    nbytes += (T * K * B + 2 * B) * 4 if out_bytes is None else out_bytes
+    return bound(nbytes, steps * beam_step_ops(K, A1 - 1))
+
+
+def duplex_bound(inp, K, A, *, tree):
+    """Bound of a duplex kernel on prepared inputs: every input read once,
+    the outputs (slot: the id log, fin, err; tree: labels_rev, count, err)
+    written once, and per read-1 step each of the K tips and K*A extensions
+    builds its band over the window, two log-sum-exps of ~5 operations (one
+    exp, one log1p, three adds) per cell."""
+    l1, l2, rg, lo, hi, _, _, ln, _ = inp
+    B, T1 = lo.shape
+    active = (np.arange(T1)[None, :] < ln.cpu().numpy()[:, None])
+    cells = int(((hi - lo).clamp(min=0).cpu().numpy() * active).sum())
+    nbytes = 4 * sum(x.numel() for x in (l1, l2, rg, lo, hi, ln))
+    nbytes += 4 * ((B * T1 if tree else T1 * K * B) + 2 * B)
+    return bound(nbytes, cells * (K + K * A) * 10)
+
+
 def parity_cases():
     """(name, probs, lengths, thr, beam_size, collapse): the CPU tests' shapes."""
     nan_probs = make_reads(3, 20, 5, 4)
@@ -167,6 +235,12 @@ def parity_cases():
     inf_probs[2, 2, 1] = -np.inf
     inf_probs[3, 7, 4] = np.nan
     cases.append(("pm_inf_nan", inf_probs, [24] * 4, 0.1, 5, True))
+    negz = make_reads(3, 30, 5, 9)
+    negz[np.random.RandomState(10).rand(*negz.shape) < 0.2] = -0.0
+    cases.append(("neg_zero", negz, [30] * 3, 0.0, 5, True))
+    cases.append(("beam1", make_reads(3, 30, 5, 15), [30, 12, 30], 0.05, 1, True))
+    cases.append(("A1=8", make_reads(3, 30, 8, 12), [30, 17, 30], 0.05, 5, True))
+    cases.append(("A1=8_beam16", make_reads(3, 30, 8, 13), [30, 17, 30], 0.0, 16, True))
     rng = np.random.RandomState(11)
     cases.append(
         ("B1024_T1000", make_reads(1024, 1000, 5, 7),
@@ -613,8 +687,10 @@ def duplex_phases(torch, dev, smi, log_counts):
     full_env = np.stack([np.zeros(T_DUP, np.int64), np.full(T_DUP, T_DUP, np.int64)], 1)
     shape = f"B={B_DUP} T1=T2={T_DUP}"
     rows = {}
+    bounds = {}
     for name, env in (("slot full", full_env), (f"slot diag{W_DIAG}", diag)):
         inp = duplex_inputs(torch, dev, dn1, dn2, env, DUP_THR)
+        bounds[name] = duplex_bound(inp, BEAM, len(ALPHABET) - 1, tree=False)
         k_ms = median_event_ms(lambda: slot_run(duplex_cuda.duplex_ids_kernel, inp, BEAM, True),
                                torch)
         got = slot_run(duplex_cuda.duplex_ids_kernel, inp, BEAM, True)
@@ -630,6 +706,7 @@ def duplex_phases(torch, dev, smi, log_counts):
             inp = duplex_inputs(torch, dev, c1, c2, diag, DUP_THR, crf=(i1, i2), tree=True)
         else:
             inp = duplex_inputs(torch, dev, dn1, dn2, diag, DUP_THR, tree=True)
+            bounds[name] = duplex_bound(inp, BEAM, len(ALPHABET) - 1, tree=True)
         k_ms = median_event_ms(
             lambda: tree_run(duplex_exact_cuda.duplex_exact_kernel_batch, inp, BEAM, not crf, crf),
             torch)
@@ -663,15 +740,238 @@ def duplex_phases(torch, dev, smi, log_counts):
          "replaces": "fast_ctc_decode_tpu/ops/duplex_pallas.py:103",
          "launches": l_full["duplex"], "max_abs_err": err_slot,
          "ms": rows["slot full"][0], "plain_ms": rows["slot full"][1],
-         "diag_ms": rows[f"slot diag{W_DIAG}"][0], "diag_plain_ms": rows[f"slot diag{W_DIAG}"][1]},
+         "bound_ms": bounds["slot full"][0], "bound_by": bounds["slot full"][1],
+         "library_ms": None,
+         "diag_ms": rows[f"slot diag{W_DIAG}"][0], "diag_plain_ms": rows[f"slot diag{W_DIAG}"][1],
+         "diag_bound_ms": bounds[f"slot diag{W_DIAG}"][0]},
         {"name": "duplex_exact_kernel", "route": "cuda", "source": src + "duplex_exact_kernel.cu",
          "replaces": "fast_ctc_decode_tpu/ops/duplex_exact_pallas.py:108",
          "launches": l_diag["duplex_exact"] + l_cdiag["duplex_exact_crf"],
          "max_abs_err": max(err_tree, err_tree_crf),
          "ms": rows["tree"][0], "plain_ms": rows["tree"][1],
+         "bound_ms": bounds["tree"][0], "bound_by": bounds["tree"][1], "library_ms": None,
          "crf_launches": l_cdiag["duplex_exact_crf"],
          "crf_ms": rows["tree crf"][0], "crf_plain_ms": rows["tree crf"][1]},
     ]
+
+
+def ab_phase(torch, dev, smi):
+    """Phase 13: the A/B path.  Versions 1, 2 and 3 of the beam kernel equal
+    one another on all four fields at the main shape (``tools.ab_bench``
+    exits at the first mismatch), then each version's kernel alone and its
+    full pipeline are timed, and ``decode`` through ``BatchBeamDecoder``
+    (which runs version 2)."""
+    from fast_ctc_decode_tpu_torch import BatchBeamDecoder
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda
+    from fast_ctc_decode_tpu_torch.tools import ab_bench
+
+    probs_d = torch.from_numpy(make_reads(B_MAIN, T_MAIN, len(ALPHABET), 42)).to(dev)
+    lengths_d = torch.full((B_MAIN,), T_MAIN, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    beam_cuda.reset_launches()
+    out = ab_bench.parity(probs_d, lengths_d, THR, beam_size=BEAM)
+    torch.cuda.synchronize()
+    launched = dict(beam_cuda.launches)
+    if min(launched[k] for k in ("beam_v1", "beam", "beam_v3")) < 1:
+        raise AssertionError(f"A/B path: a version never launched: {launched}")
+    if int((out["err"] != 0).sum()) or int(out["count"].min()) < 1:
+        raise AssertionError("A/B path: statuses not all OK")
+    log(f"A/B path B={B_MAIN} T={T_MAIN}: versions 1, 2, 3 equal on {', '.join(FIELDS)}; "
+        f"launches {launched}")
+    times = ab_bench.time_versions(probs_d, lengths_d, THR, beam_size=BEAM)
+    for (v, kind), t in times.items():
+        log(f"time A/B v{v} {'raw kernel' if kind == 'raw' else 'full pipeline'} "
+            f"B={B_MAIN} T={T_MAIN}: {t!r} ms ({B_MAIN / (t / 1e3):.1f} reads/s) [{smi}]")
+    dec = BatchBeamDecoder(ALPHABET, T=T_MAIN, beam_size=BEAM, beam_cut_threshold=THR,
+                           device="cuda")
+    dec_ms = median_ms(lambda: dec.decode(probs_d, lengths_d), torch, 3)
+    log(f"time A/B BatchBeamDecoder.decode (version 2) B={B_MAIN} T={T_MAIN}: {dec_ms!r} ms "
+        f"({B_MAIN / (dec_ms / 1e3):.1f} reads/s) [{smi}]")
+    del probs_d, lengths_d, out
+    torch.cuda.empty_cache()
+    return launched, times
+
+
+def ablate_phase(torch, dev, smi):
+    """Phase 14: the ablation path.  Each of the tool's nine sets on the
+    kernel equals ``ablate_plain`` (fin, err) at B=256, T=200; the whole
+    kernel (no phase stubbed) equals version 1; then ``tools.kernel_ablate``
+    times all nine at its default B=16384, T=1000."""
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda
+    from fast_ctc_decode_tpu_torch.tools import kernel_ablate as ka
+
+    p = torch.from_numpy(make_reads(256, 200, len(ALPHABET), 80)).to(dev)
+    ln = torch.from_numpy(np.random.RandomState(81).randint(0, 201, 256).astype(np.int32)).to(dev)
+    err = 0
+    for ab in ka.SETS:
+        got = ka.run_ablate(p, ln, THR, beam_size=BEAM, ablate=ab)
+        want = ka.ablate_plain(p, ln, THR, beam_size=BEAM, ablate=ab)
+        d = max(max_abs_diff(got[k], want[k]) for k in ("fin", "err"))
+        torch.cuda.synchronize()
+        log(f"parity ablate {ab or 'none'} B=256 T=200: fin/err max_abs_err {d}, err codes "
+            f"{sorted(set(got['err'].tolist()))}")
+        if d:
+            raise AssertionError(f"ablation kernel != ablate_plain for set {ab!r}")
+        err = max(err, d)
+    _, fin1, err1 = beam_cuda.beam_ids_kernel(p, ln, THR, beam_size=BEAM, version=1)
+    whole = ka.run_ablate(p, ln, THR, beam_size=BEAM)
+    if not (torch.equal(whole["fin"], fin1) and torch.equal(whole["err"], err1)):
+        raise AssertionError("the ablation kernel with nothing stubbed differs from version 1")
+    B, T = 16384, 1000
+    pd = torch.from_numpy(make_reads(B, T, len(ALPHABET), 42)).to(dev)
+    ld = torch.full((B,), T, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    ka.launches["ablate"] = 0
+    ms = ka.time_sets(pd, ld, THR, beam_size=BEAM)
+    torch.cuda.synchronize()
+    launches = ka.launches["ablate"]
+    if launches < len(ka.SETS):
+        raise AssertionError(f"ablation path: {launches} launches for {len(ka.SETS)} sets")
+    for ab, t in ms.items():
+        log(f"time ablate={ab or 'none':12s} B={B} T={T}: {t!r} ms, delta "
+            f"{ms[''] - t:+.3f} ms [{smi}]")
+    plain_ms, _ = once_event_ms(lambda: ka.ablate_plain(pd, ld, THR, beam_size=BEAM), torch)
+    log(f"time ablate_plain (none) B={B} T={T}: {plain_ms!r} ms (one call) [{smi}]")
+    row = {"launches": launches, "max_abs_err": err, "ms": ms[""], "plain_ms": plain_ms,
+           "bound": beam_bound(np.full(B, T), T, BEAM, len(ALPHABET)),
+           "sets_ms": {ab or "none": t for ab, t in ms.items()}}
+    del pd, ld
+    torch.cuda.empty_cache()
+    return row
+
+
+def serving_phase(torch, dev, smi, oracle, counts, reset_counts):
+    """Phase 15: the JSON/HTTP service on the card with micro-batching, and
+    the torch.distributed counters (world size 1 over NCCL)."""
+    import http.client
+    import socket
+    import threading
+
+    from fast_ctc_decode_tpu_torch import BatchBeamDecoder, BatchViterbiDecoder, api, serve
+    from fast_ctc_decode_tpu_torch.parallel import mesh, pipeline
+
+    httpd = serve.make_http_server("127.0.0.1", 0, microbatch=True, device="cuda")
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def post(body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            t0 = time.perf_counter()
+            conn.request("POST", "/", body)
+            r = conn.getresponse()
+            data = r.read()
+            return r.status, json.loads(data), time.perf_counter() - t0
+        finally:
+            conn.close()
+
+    def request(x, method="beam_search", **kw):
+        return json.dumps({"method": method, "posteriors": x.reshape(-1).tolist(),
+                           "shape": list(x.shape), "alphabet": list(ALPHABET), **kw})
+
+    try:
+        # a beam batch request, B=256 reads of T=1000
+        Bs = 256
+        sp = make_reads(Bs, T_MAIN, len(ALPHABET), 90)
+        body = request(sp, beam_size=BEAM, beam_cut_threshold=THR)
+        reset_counts()
+        status, out, batch_s = post(body)
+        launched = counts()
+        if status != 200 or launched["beam"] < 1 or launched["traceback"] < 1:
+            raise AssertionError(f"serve batch beam request: status {status}, launches {launched}")
+        want = BatchBeamDecoder(ALPHABET, T=T_MAIN, beam_size=BEAM, beam_cut_threshold=THR,
+                                device="cuda").decode(sp, np.full(Bs, T_MAIN, np.int32))
+        got = [(r["seq"], r["starts"], r["err"]) for r in out["results"]]
+        if got != want:
+            raise AssertionError("serve batch beam request differs from BatchBeamDecoder")
+        for i in np.linspace(0, Bs - 1, 8).astype(int):
+            if got[i][0] != oracle.beam_search(sp[i], ALPHABET, BEAM, THR)[0]:
+                raise AssertionError(f"serve batch read {i} differs from tests/oracle.py")
+        walls = [batch_s]  # the first request's wall, then four more of the same body
+        for _ in range(4):
+            status, again, wall = post(body)
+            if status != 200 or again != out:
+                raise AssertionError("serve batch beam request: a repeat differs from the first")
+            walls.append(wall)
+        batch_s = float(np.median(walls))
+        log(f"serve: beam batch request B={Bs} T={T_MAIN} over HTTP equals BatchBeamDecoder on "
+            f"the card, 8 reads equal tests/oracle.py; launches {launched} (first request); "
+            f"wall median of 5 {batch_s:.3f} s, {Bs / batch_s:.1f} reads/s (each s: "
+            f"{', '.join(f'{w:.3f}' for w in walls)}; request JSON {len(body) / 2**20:.1f} MiB "
+            f"parsed on the server) [{smi}]")
+
+        # a viterbi batch request
+        vp = make_reads(64, T_MAIN, len(ALPHABET), 91)
+        status, out, vit_s = post(request(vp, method="viterbi_search"))
+        want = BatchViterbiDecoder(ALPHABET, T=T_MAIN, device="cuda").decode(
+            vp, np.full(64, T_MAIN, np.int32))
+        if status != 200 or [(r["seq"], r["starts"]) for r in out["results"]] != want:
+            raise AssertionError("serve viterbi batch request differs from BatchViterbiDecoder")
+        log(f"serve: viterbi batch request B=64 T={T_MAIN} equals BatchViterbiDecoder; "
+            f"{vit_s:.3f} s")
+
+        # 64 concurrent single reads (bucket 1024, micro-batched) and one malformed request
+        n = 64
+        lens = np.random.RandomState(92).randint(600, T_MAIN + 1, n)
+        reads = [make_reads(1, int(t), len(ALPHABET), 1100 + i)[0] for i, t in enumerate(lens)]
+        bodies = [request(x, beam_size=BEAM, beam_cut_threshold=THR) for x in reads]
+        bodies.append('{"method": "beam_search", "shape": [10, 5], "alphabet": "NACGT"}')
+        results = [None] * len(bodies)
+
+        def one(i):
+            results[i] = post(bodies[i])
+
+        mb = serve._MICRO
+        b0 = mb.batches
+        reset_counts()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=150)
+        singles_s = time.perf_counter() - t0
+        launched = counts()
+        batches = mb.batches - b0
+        if any(r is None for r in results):
+            raise AssertionError("serve: a single-read request did not finish")
+        if results[-1][0] != 400 or "error" not in results[-1][1]:
+            raise AssertionError(f"serve: the malformed request got {results[-1][:2]}")
+        for i, x in enumerate(reads):
+            status, r, _ = results[i]
+            if status != 200 or r["seq"] != api.beam_search(x, ALPHABET, BEAM, THR,
+                                                            device="cuda")[0]:
+                raise AssertionError(f"serve: single read {i} differs from api.beam_search")
+        if not batches < n or launched["beam"] < 1:
+            raise AssertionError(f"serve: {batches} batches for {n} reads, launches {launched}")
+        lat = np.array([r[2] for r in results[:n]]) * 1e3
+        log(f"serve: {n} concurrent single reads (T {lens.min()}-{lens.max()}, bucket 1024) "
+            f"equal api.beam_search on the card; {batches} micro-batches, launches {launched}; "
+            f"the malformed request got 400; wall {singles_s:.3f} s, latency p50 "
+            f"{np.percentile(lat, 50):.1f} ms, p99 {np.percentile(lat, 99):.1f} ms [{smi}]")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        serve.disable_microbatching()
+        thread.join(timeout=60)
+
+    # the torch.distributed counters: one process over NCCL
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        dport = s.getsockname()[1]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: the loopback rendezvous
+    mesh.distributed_init(f"tcp://127.0.0.1:{dport}", 1, 0)
+    try:
+        backend = torch.distributed.get_backend()
+        _, totals = pipeline.decode_and_count(
+            sp, np.full(Bs, T_MAIN, np.int32), beam_size=BEAM, threshold=THR, collapse=True)
+        if backend != "nccl" or totals.tolist() != [Bs, 0]:
+            raise AssertionError(f"decode_and_count over {backend}: totals {totals.tolist()}")
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"distributed_init (world size 1, {backend}) + decode_and_count: totals "
+        f"{totals.tolist()} after all_reduce")
 
 
 def main():
@@ -712,31 +1012,40 @@ def main():
             log(f"ptxas: {line.strip()}")
 
     # ---- phase 2: kernel vs plain, bit for bit, on the card ----
-    err_beam = err_tb = 0
+    # every version of the beam kernel (1, 2 = the default, 3) against the
+    # one plain function they compute
+    err_beam = {1: 0, 2: 0, 3: 0}
+    err_tb = 0
     for name, probs, lengths, thr, K, collapse in parity_cases():
         p = torch.from_numpy(probs).to(dev)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        ids_k, fin_k, e_k = beam_cuda.beam_ids_kernel(
-            p, ln, thr, beam_size=K, collapse_repeats=collapse)
         ids_p, fin_p, e_p = beam_cuda.beam_ids_plain(
-            p, ln, thr, beam_size=K, collapse_repeats=collapse)
-        d_beam = max(max_abs_diff(ids_k, ids_p), max_abs_diff(fin_k, fin_p),
-                     max_abs_diff(e_k, e_p))
-        T, A = probs.shape[1], probs.shape[2] - 1
-        tb_k = beam_cuda.traceback_kernel(fin_k, ids_k, T=T, K=K, A=A)
-        tb_p = beam_cuda.traceback_plain(fin_k, ids_k, T=T, K=K, A=A)
-        d_tb = max(max_abs_diff(x, y) for x, y in zip(tb_k, tb_p))
-        got = beam_cuda.beam_search_kernel_batch(
             p, ln, thr, beam_size=K, collapse_repeats=collapse)
         want = beam_fast.beam_search_fast_batch(
             p, ln, thr, beam_size=K, collapse_repeats=collapse)
-        d_all = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
-        torch.cuda.synchronize()
-        log(f"parity {name}: beam max_abs_err {d_beam}, traceback {d_tb}, "
-            f"dict {d_all}, err codes {sorted(set(e_k.tolist()))}")
-        if d_beam or d_tb or d_all:
-            raise AssertionError(f"kernel != plain on case {name}")
-        err_beam, err_tb = max(err_beam, d_beam, d_all), max(err_tb, d_tb, d_all)
+        T, A = probs.shape[1], probs.shape[2] - 1
+        msg = []
+        for v in (1, 2, 3):
+            ids_k, fin_k, e_k = beam_cuda.beam_ids_kernel(
+                p, ln, thr, beam_size=K, collapse_repeats=collapse, version=v)
+            d_beam = max(max_abs_diff(ids_k, ids_p), max_abs_diff(fin_k, fin_p),
+                         max_abs_diff(e_k, e_p))
+            got = beam_cuda.beam_search_kernel_batch(
+                p, ln, thr, beam_size=K, collapse_repeats=collapse, version=v)
+            d_all = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
+            if v == 2:
+                tb_k = beam_cuda.traceback_kernel(fin_k, ids_k, T=T, K=K, A=A)
+                tb_p = beam_cuda.traceback_plain(fin_k, ids_k, T=T, K=K, A=A)
+                d_tb = max(max_abs_diff(x, y) for x, y in zip(tb_k, tb_p))
+                err_tb = max(err_tb, d_tb, d_all)
+                msg.append(f"traceback {d_tb}")
+            torch.cuda.synchronize()
+            msg.append(f"v{v} beam {d_beam} dict {d_all}")
+            if d_beam or d_all or err_tb:
+                raise AssertionError(f"kernel (version {v}) != plain on case {name}")
+            err_beam[v] = max(err_beam[v], d_beam, d_all)
+        log(f"parity {name}: max_abs_err {', '.join(msg)}, err codes "
+            f"{sorted(set(e_p.tolist()))}")
 
     # ---- phase 2b: CRF beam and exact tree kernels vs plain, bit for bit ----
     err_crf = err_exact = err_exact_crf = 0
@@ -806,8 +1115,8 @@ def main():
         want_shape = (B_MAIN, T_MAIN) if f in ("labels_rev", "times_rev") else (B_MAIN,)
         if tuple(out[f].shape) != want_shape or out[f].dtype != torch.int32:
             raise AssertionError(f"main path: {f} is {tuple(out[f].shape)} {out[f].dtype}")
-    counts = out["count"]
-    if int(counts.min()) < 1 or int(counts.max()) > T_MAIN:
+    counts_main = out["count"].cpu().numpy()
+    if int(counts_main.min()) < 1 or int(counts_main.max()) > T_MAIN:
         raise AssertionError("main path: counts out of range")
     for i in np.linspace(0, B_MAIN - 1, 8).astype(int):
         want, _ = oracle.beam_search(probs[i], ALPHABET, BEAM, THR)
@@ -816,7 +1125,7 @@ def main():
         if len(res[i][1]) != len(want):
             raise AssertionError(f"read {i}: path length {len(res[i][1])}")
     log(f"oracle gate: 8 sampled reads equal tests/oracle.py "
-        f"(mean length {float(counts.float().mean()):.1f})")
+        f"(mean length {float(counts_main.mean()):.1f})")
 
     # ---- phase 4: decode_many resumes from a checkpoint ----
     rng = np.random.RandomState(5)
@@ -1056,32 +1365,55 @@ def main():
     duplex_rows = duplex_phases(
         torch, dev, smi, types.SimpleNamespace(reset=reset_counts, read=counts))
 
+    # ---- phases 13-15: the A/B path, the ablation path, serving ----
+    ab_launches, ab_ms = ab_phase(torch, dev, smi)
+    abl = ablate_phase(torch, dev, smi)
+    serving_phase(torch, dev, smi, oracle, counts, reset_counts)
+
     if "jax" in sys.modules or any(m.startswith("fast_ctc_decode_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     log(f"total wall time: {time.perf_counter() - run_t0:.1f} s")
     src = "fast_ctc_decode_tpu_torch/csrc/"
+    A1 = len(ALPHABET)
+    main_len = np.full(B_MAIN, T_MAIN)
+    b_beam = beam_bound(main_len, T_MAIN, BEAM, A1)
+    b_tb = bound(4 * (B_MAIN + int(counts_main.sum()) + 2 * B_MAIN * T_MAIN + B_MAIN), 0)
+    b_crf = beam_bound(np.full(B_CRF, T_CRF), T_CRF, BEAM, A1, rows_per_step=BEAM,
+                       extra_in=4 * B_CRF * S_CRF)
+    b_exact = beam_bound(np.full(B_EXACT, T_MAIN), T_MAIN, BEAM, A1,
+                         out_bytes=4 * (2 * B_EXACT * T_MAIN + 2 * B_EXACT))
+    b_exact_crf = beam_bound(np.full(B_CRF_EXACT, T_CRF), T_CRF, BEAM, A1, rows_per_step=BEAM,
+                             extra_in=4 * B_CRF_EXACT * S_CRF,
+                             out_bytes=4 * (2 * B_CRF_EXACT * T_CRF + 2 * B_CRF_EXACT))
+
+    def row(name, source, replaces, launched, err, k_ms, p_ms, bnd, **extra):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launched, "max_abs_err": err,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None, **extra}
+
+    bp = "fast_ctc_decode_tpu/ops/beam_pallas.py:"
     print(json.dumps({"kernels": [
-        {"name": "beam_ids_kernel", "route": "cuda", "source": src + "beam_kernel.cu",
-         "replaces": "fast_ctc_decode_tpu/ops/beam_pallas.py:367",
-         "launches": launches["beam"], "max_abs_err": err_beam,
-         "ms": ms["beam kernel"], "plain_ms": ms["plain beam"]},
-        {"name": "traceback_kernel", "route": "cuda", "source": src + "traceback_kernel.cu",
-         "replaces": "fast_ctc_decode_tpu/ops/beam_pallas.py:967",
-         "launches": launches["traceback"], "max_abs_err": err_tb,
-         "ms": ms["traceback kernel"], "plain_ms": ms["plain traceback"]},
-        {"name": "crf_beam_ids_kernel", "route": "cuda", "source": src + "crf_beam_kernel.cu",
-         "replaces": "fast_ctc_decode_tpu/ops/beam_pallas.py:1270",
-         "launches": path_launches["crf_beam"], "max_abs_err": err_crf,
-         "ms": new_ms["crf beam kernel"], "plain_ms": new_ms["plain crf beam"]},
-        {"name": "exact_beam_kernel", "route": "cuda", "source": src + "exact_beam_kernel.cu",
-         "replaces": "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65",
-         "launches": path_launches["exact"], "max_abs_err": err_exact,
-         "ms": new_ms["exact kernel"], "plain_ms": new_ms["plain exact"]},
-        {"name": "exact_beam_kernel_crf", "route": "cuda", "source": src + "exact_beam_kernel.cu",
-         "replaces": "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65",
-         "launches": path_launches["exact_crf"], "max_abs_err": err_exact_crf,
-         "ms": new_ms["exact crf kernel"], "plain_ms": new_ms["plain exact crf"]},
+        row("beam_ids_kernel", "beam_kernel.cu", bp + "367", launches["beam"], err_beam[2],
+            ms["beam kernel"], ms["plain beam"], b_beam, version=2),
+        row("traceback_kernel", "traceback_kernel.cu", bp + "967", launches["traceback"],
+            err_tb, ms["traceback kernel"], ms["plain traceback"], b_tb),
+        row("beam_ids_kernel_v1", "beam_v1_kernel.cu", bp + "93", ab_launches["beam_v1"],
+            err_beam[1], ab_ms[(1, "raw")], ms["plain beam"], b_beam, version=1),
+        row("beam_ids_kernel_v3", "beam_v3_kernel.cu", bp + "679", ab_launches["beam_v3"],
+            err_beam[3], ab_ms[(3, "raw")], ms["plain beam"], b_beam, version=3),
+        row("crf_beam_ids_kernel", "crf_beam_kernel.cu", bp + "1270", path_launches["crf_beam"],
+            err_crf, new_ms["crf beam kernel"], new_ms["plain crf beam"], b_crf),
+        row("exact_beam_kernel", "exact_beam_kernel.cu",
+            "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65", path_launches["exact"], err_exact,
+            new_ms["exact kernel"], new_ms["plain exact"], b_exact),
+        row("exact_beam_kernel_crf", "exact_beam_kernel.cu",
+            "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65", path_launches["exact_crf"],
+            err_exact_crf, new_ms["exact crf kernel"], new_ms["plain exact crf"], b_exact_crf),
         *duplex_rows,
+        row("beam_ablate_kernel", "beam_ablate_kernel.cu", "tools/kernel_ablate.py:36",
+            abl["launches"], abl["max_abs_err"], abl["ms"], abl["plain_ms"], abl["bound"],
+            sets_ms=abl["sets_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,13 @@ Public surface:
     (fast/exact), and the checkpointable ``decode_many`` /
     ``decode_many_crf`` / ``decode_many_duplex``;
   - ``SearchError`` and ``__version__``.
+Beside it: the JSON/HTTP service ``serve`` (``python -m
+fast_ctc_decode_tpu_torch.serve``), the process-group helpers
+``parallel.mesh`` (one process per card, torch.distributed), and the
+kernel measurement tools ``tools.ab_bench`` and ``tools.kernel_ablate``.
+
+Every entry point takes ``device``: None (the default) is the CUDA card and
+raises RuntimeError without one; ``device="cpu"`` runs the plain engines.
 """
 
 from .api import (

@@ -6,9 +6,10 @@ reference's PyO3 bindings, src/lib.rs:170-578): the same signatures,
 defaults, argument checks, messages and exception types (ValueError for
 precondition failures before any decode, RuntimeError (``SearchError``)
 for search failures, TypeError for a non-f32 or wrong-rank array).  Each
-function adds one keyword-only ``device`` ("cpu" by default): the decode
-runs there, on the hand-written kernels for a CUDA device and on the plain
-torch engines for the CPU.
+function adds one keyword-only ``device``: the decode runs there, on the
+hand-written kernels for a CUDA device and on the plain torch engines for
+the CPU.  None (the default) is the CUDA card and raises RuntimeError
+without one; ``device="cpu"`` asks for the CPU.
 
 Engines of the two beam functions:
   - "exact" (default): the flattened-suffix-tree engine, bit-exact
@@ -29,6 +30,7 @@ import torch
 
 from . import errors
 from .alphabet import normalize_alphabet
+from .device import resolve_device
 from .ops import beam as beam_ops
 from .ops import beam_cuda
 from .ops import beam_exact_cuda
@@ -98,11 +100,12 @@ def viterbi_search(
     qbias: float = 0.0,
     collapse_repeats: bool = True,
     *,
-    device="cpu",
+    device=None,
 ) -> Tuple[str, List[int]]:
     """Viterbi decode; parity with src/lib.rs:180-212 / src/search.rs:320-383.
     The per-frame argmax runs on ``device``; the run-mean qualities are
     assembled on the host with the reference's sequential f32 sums."""
+    device = resolve_device(device)
     alphabet = normalize_alphabet(alphabet)
     network_output = _as_f32(network_output, 2, "network_output")
     if len(alphabet) == 0:
@@ -115,7 +118,7 @@ def viterbi_search(
         raise ValueError("network_output must not be empty")
 
     labels, pmax = viterbi_ops.viterbi_core(
-        torch.from_numpy(network_output).to(torch.device(device))
+        torch.from_numpy(network_output).to(device)
     )
     return viterbi_ops.assemble_host(
         labels.cpu().numpy(), pmax.cpu().numpy(), alphabet, qstring, qscale,
@@ -132,13 +135,14 @@ def beam_search(
     *,
     max_nodes: Optional[int] = None,
     engine: Optional[str] = None,
-    device="cpu",
+    device=None,
 ) -> Tuple[str, List[int]]:
     """CTC prefix beam search; parity with src/lib.rs:323-365 /
     src/search.rs:159-301.  ``engine``: "exact" (default) or "fast" (see
     the module docstring); combining ``max_nodes`` with "fast" is an
     error.  On a CUDA ``device`` both run the hand-written kernels and
     raise outside their bounds (beam_size <= 16, len(alphabet) <= 8)."""
+    device = resolve_device(device)
     alphabet = normalize_alphabet(alphabet)
     network_output = _as_f32(network_output, 2, "network_output")
     if len(alphabet) != network_output.shape[1]:
@@ -188,9 +192,10 @@ def crf_greedy_search(
     qscale: float = 1.0,
     qbias: float = 0.0,
     *,
-    device="cpu",
+    device=None,
 ) -> Tuple[str, List[int]]:
     """Greedy CRF decode; parity with src/lib.rs:217-250 / src/search.rs:385-423."""
+    device = resolve_device(device)
     alphabet = normalize_alphabet(alphabet)
     network_output = _as_f32(network_output, 3, "network_output")
     init_state = _as_f32(init_state, 1, "init_state")
@@ -224,7 +229,7 @@ def crf_beam_search(
     *,
     max_nodes: Optional[int] = None,
     engine: str = "exact",
-    device="cpu",
+    device=None,
 ) -> Tuple[str, List[int]]:
     """CRF prefix beam search; parity with src/lib.rs:255-286 /
     src/search.rs:38-157.  The reference binding performs no
@@ -232,6 +237,7 @@ def crf_beam_search(
     the first step, which surfaces as RanOutOfBeam.  ``engine``: "exact"
     (default) or "fast"; "fast" ignores ``max_nodes``, as the JAX package
     does."""
+    device = resolve_device(device)
     alphabet = normalize_alphabet(alphabet)
     network_output = _as_f32(network_output, 3, "network_output")
     init_state = _as_f32(init_state, 1, "init_state")
@@ -280,7 +286,7 @@ def _pick_duplex_engine(
     batch,
     max_nodes: Optional[int] = None,
     *,
-    device="cpu",
+    device=None,
     beam_size: int = 5,
     crf: bool = False,
 ) -> str:
@@ -299,6 +305,7 @@ def _pick_duplex_engine(
     a CUDA device "fast" is the slot kernel ("cuda"; plain duplex only),
     which raises ValueError outside its envelope class or bounds.
     """
+    device = resolve_device(device)
     if engine is None:
         if max_nodes is not None:
             return "exact"
@@ -355,7 +362,7 @@ def beam_search_duplex(
     *,
     max_nodes: Optional[int] = None,
     engine: Optional[str] = None,
-    device="cpu",
+    device=None,
 ) -> str:
     """2-D pair-consensus beam search; parity with src/lib.rs:411-488 /
     src/duplex.rs:443-650.  ``engine``: None (auto, ``_pick_duplex_engine``),
@@ -363,6 +370,7 @@ def beam_search_duplex(
     ValueError outside its envelope class of non-decreasing lower bounds or
     its bounds; the plain engine on the CPU) or "exact" (the tree kernel on
     CUDA, the plain tree engine on the CPU)."""
+    device = resolve_device(device)
     alphabet = normalize_alphabet(alphabet)
     network_output_1 = _as_f32(network_output_1, 2, "network_output_1")
     network_output_2 = _as_f32(network_output_2, 2, "network_output_2")
@@ -401,12 +409,13 @@ def crf_beam_search_duplex(
     *,
     max_nodes: Optional[int] = None,
     engine: Optional[str] = None,
-    device="cpu",
+    device=None,
 ) -> str:
     """2-D CRF pair-consensus beam search; parity with src/lib.rs:495-578 /
     src/duplex.rs:652-834.  ``engine`` as in ``beam_search_duplex``, except
     that "fast" runs the plain CRF slot engine on every device (there is no
     CRF slot kernel, as in the JAX package)."""
+    device = resolve_device(device)
     alphabet = normalize_alphabet(alphabet)
     network_output_1 = _as_f32(network_output_1, 3, "network_output_1")
     network_output_2 = _as_f32(network_output_2, 3, "network_output_2")

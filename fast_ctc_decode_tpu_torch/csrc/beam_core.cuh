@@ -1,5 +1,6 @@
 // Batched CTC prefix beam search, hash-identity form: the forward beam over
-// all T steps, shared by the 1D kernel (beam_kernel.cu) and the CRF kernel
+// all T steps, shared by the 1D kernels (beam_kernel.cu, beam_v1_kernel.cu,
+// beam_v3_kernel.cu, beam_ablate_kernel.cu) and the CRF kernel
 // (crf_beam_kernel.cu).
 //
 // It computes what the plain engine fast_ctc_decode_tpu_torch/ops/beam_fast.py
@@ -10,6 +11,30 @@
 // [T, K, B] log of entry-tip ids (read-minor), the final best id and the
 // status code of every read.
 //
+// Three versions of the prefix identity, one template parameter V, as the
+// TPU kernels of beam_pallas.py (_KERNEL_VARIANTS); all give the same
+// outputs:
+//  - V = 1 (_beam_kernel, and the CRF kernel): each tip carries its OWN
+//    hash pair.  Every step mixes all K*A child hashes, compares each with
+//    every tip's own hash, and the selection rounds pick the winners'
+//    hashes (a fresh winner's is mixed again).
+//  - V = 2 (_beam_kernel2, the default): each tip carries its PARENT hash
+//    pair.  Own hashes are mixed once per tip per step (the root's is the
+//    seed), extension (k, a) matches tip j iff own(k) == parent(j), a ==
+//    last(j) and j is valid (mix is a bijection of the hash for a fixed
+//    label, so this is exactly V1's test), the rounds record only each
+//    winner's source, and the new parent hashes are rebuilt after the
+//    rounds: a fresh winner (k, a) takes own(k), a tip winner keeps its
+//    parent.  No hash travels through the K rounds.  The TPU kernel's
+//    vector tricks (label XOR fold, validity poisoning) are left out: the
+//    fields are compared directly.
+//  - V = 3 (_beam_kernel3): V2 with the candidates enumerated a-major: the
+//    expansion, the merge and the key array run a outer, k inner, so p[a]
+//    and its threshold test are loaded once per label.  Candidate ids stay
+//    t*K*A + k*A + a, so the selection and its ties are unchanged.
+// ABL (version 1 only, kernel_ablate): a compile-time mask of step phases
+// replaced by stubs, deliberately wrong, to attribute time to the phases.
+//
 // Design: one thread per read, block 128.  The beam (K tips x lab, gap,
 // h1, h2, last label, state, id, valid) and the K + K*A candidate keys live
 // in per-thread arrays whose sizes are template bounds (KMAX, AMAX); every
@@ -19,11 +44,12 @@
 // its length or has a non-zero status is frozen and only logs its ids from
 // then on.
 //
-// CRF (template flag): each tip reads its own row probs[b, t, state_k, :]
-// by one indexed load (the TPU kernel's log2(S) select tree and its
-// power-of-two S / 8-lane padding are layout and have no counterpart), adds
-// +0.0 to every entry as the plain engine's one-hot masked sum does, has no
-// repeat collapse and no stay, and carries its state through selection.
+// CRF (template flag, V = 1 only): each tip reads its own row
+// probs[b, t, state_k, :] by one indexed load (the TPU kernel's log2(S)
+// select tree and its power-of-two S / 8-lane padding are layout and have
+// no counterpart), adds +0.0 to every entry as the plain engine's one-hot
+// masked sum does, has no repeat collapse and no stay, and carries its
+// state through selection.
 //
 // What bounds it on this card: latency and registers.  Each step is a long
 // dependent chain of compares and selects per thread, and the per-thread
@@ -68,6 +94,14 @@ constexpr int kIncomparable = 2;  // errors.INCOMPARABLE_VALUES
 constexpr int kRanOut = 1;  // errors.RAN_OUT_OF_BEAM
 constexpr int kBlock = 128;
 
+// Ablation bits (tools/kernel_ablate.py::_kernel); each stubs one phase:
+constexpr int kAblIdlog = 1;    // no id-log store
+constexpr int kAblMix = 2;      // child hash = the tip's own hash
+constexpr int kAblMatch = 4;    // no matching, no arrivals, push = pushed
+constexpr int kAblErr = 8;      // no status flags
+constexpr int kAblRounds = 16;  // one selection round; slots 1..K-1 left as they were
+constexpr int kAblHpick = 32;   // new hashes sel_id*7, sel_id*13
+
 __device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t x, uint32_t mult,
                                         uint32_t add) {
   uint32_t z = h ^ (x * mult + add);
@@ -80,23 +114,33 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 
 // probs: [B, T, A+1] (1D) or [B, T, S, A+1] (CRF) f32; init: [B, Si] f32
 // (CRF only; nullptr for 1D).
-template <int KMAX, int AMAX, bool CRF>
+template <int KMAX, int AMAX, bool CRF, int V, int ABL>
 __global__ void __launch_bounds__(kBlock)
 beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
                 const int* __restrict__ lengths, float thr, int B, int T, int S,
                 int Si, int A, int K, int collapse, int* __restrict__ ids_log,
                 int* __restrict__ fin, int* __restrict__ err_out) {
+  static_assert(V >= 1 && V <= 3, "versions 1, 2, 3");
+  static_assert(!CRF || V == 1, "the CRF kernel is version 1");
+  static_assert(ABL == 0 || (V == 1 && !CRF), "ablation runs on the 1D version 1");
   constexpr int CMAX = KMAX + KMAX * AMAX;
-  // Outer loops over K unroll only for the narrow instances: unrolling the
+  // The (k, a) loops run k outer (V1, V2) or a outer (V3): O x I.
+  constexpr int O = V == 3 ? AMAX : KMAX;
+  constexpr int I = V == 3 ? KMAX : AMAX;
+  // Outer loops unroll only for the narrow instances: unrolling the
   // wide ones (128 candidates x 16 rounds) takes nvcc minutes and spills
   // anyway, so their per-round state lives in local memory.
   constexpr int UK = KMAX * CMAX <= 256 ? KMAX : 1;
+  constexpr int UO = KMAX * CMAX <= 256 ? O : 1;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int A1 = A + 1;
   const int KA = K * A;
   const int len = lengths[b];
   const float* row = probs + (size_t)b * (size_t)T * (size_t)S * (size_t)A1;
+  // candidate slot c >= KMAX <-> fresh extension (k, a), in loop order
+#define FK(c) (V == 3 ? ((c) - KMAX) % KMAX : ((c) - KMAX) / AMAX)
+#define FA(c) (V == 3 ? ((c) - KMAX) / KMAX : ((c) - KMAX) % AMAX)
 
   // ---- beam state: the root alone in slot 0 ----
   float lab0 = 0.f, gap0 = 1.f;
@@ -117,6 +161,8 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       }
     }
   }
+  // h1/h2: the tip's own hash (V1) or its parent's hash (V2, V3; the
+  // root's is unused: its own hash is the seed)
   float lab[KMAX], gap[KMAX];
   uint32_t h1[KMAX], h2[KMAX];
   int ll[KMAX], id[KMAX], st[KMAX];
@@ -125,8 +171,8 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
   for (int k = 0; k < KMAX; ++k) {
     lab[k] = k == 0 ? lab0 : 0.f;
     gap[k] = k == 0 ? gap0 : 0.f;
-    h1[k] = k == 0 ? kSeed1 : 0u;
-    h2[k] = k == 0 ? kSeed2 : 0u;
+    h1[k] = (V == 1 && k == 0) ? kSeed1 : 0u;
+    h2[k] = (V == 1 && k == 0) ? kSeed2 : 0u;
     ll[k] = -1;
     st[k] = k == 0 ? st0 : 0;
     id[k] = k == 0 ? kRoot : kEmpty;
@@ -136,9 +182,11 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
 
   int t = 0;
   for (; t < T; ++t) {
+    if (!(ABL & kAblIdlog)) {
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k)
-      if (k < K) ids_log[((size_t)t * K + k) * B + b] = id[k];
+      for (int k = 0; k < KMAX; ++k)
+        if (k < K) ids_log[((size_t)t * K + k) * B + b] = id[k];
+    }
     if (t >= len || err != 0) break;  // frozen from here on
 
     // p[a] (1D: one row) or pk[k][a] (CRF: each tip's row, +0.0 added)
@@ -164,29 +212,65 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) lg[k] = __fadd_rn(lab[k], gap[k]);
 
+    // ---- own hashes (V2, V3: once per tip) and the parent matches ----
+    uint32_t oh1[KMAX], oh2[KMAX];
+    uint32_t eqk[KMAX];  // V2, V3: bit j iff own(k) == parent(j)
+    uint32_t labm[AMAX];  // V2, V3: bit j iff tip j is valid with last label a
+    if (V != 1) {
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        oh1[k] = ll[k] < 0 ? kSeed1 : mix(h1[k], (uint32_t)ll[k], kMult1, kAdd1);
+        oh2[k] = ll[k] < 0 ? kSeed2 : mix(h2[k], (uint32_t)ll[k], kMult2, kAdd2);
+      }
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        uint32_t m = 0u;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j < K && oh1[k] == h1[j] && oh2[k] == h2[j]) m |= 1u << j;
+        eqk[k] = m;
+      }
+#pragma unroll
+      for (int a = 0; a < AMAX; ++a) {
+        uint32_t m = 0u;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j < K && valid[j] && ll[j] == a) m |= 1u << j;
+        labm[a] = m;
+      }
+    }
+
     // ---- expand: extension (k, a) -> mass, push flag, matched tips ----
     float mext[KMAX][AMAX];
     bool push[KMAX][AMAX];
     uint32_t hits[KMAX][AMAX];  // bit j: extension (k, a) targets tip j
-#pragma unroll(UK)
-    for (int k = 0; k < KMAX; ++k) {
+#pragma unroll(UO)
+    for (int o = 0; o < O; ++o) {
 #pragma unroll
-      for (int a = 0; a < AMAX; ++a) {
+      for (int i = 0; i < I; ++i) {
+        const int k = V == 3 ? i : o, a = V == 3 ? o : i;
         uint32_t m = 0u;
         bool pu = false;
         float me = 0.f;
         if (k < K && a < A) {
-          const uint32_t th1 = mix(h1[k], (uint32_t)a, kMult1, kAdd1);
-          const uint32_t th2 = mix(h2[k], (uint32_t)a, kMult2, kAdd2);
+          if (V != 1) {
+            m = eqk[k] & labm[a];
+          } else if (!(ABL & kAblMatch)) {
+            const uint32_t th1 =
+                (ABL & kAblMix) ? h1[k] : mix(h1[k], (uint32_t)a, kMult1, kAdd1);
+            const uint32_t th2 =
+                (ABL & kAblMix) ? h2[k] : mix(h2[k], (uint32_t)a, kMult2, kAdd2);
 #pragma unroll
-          for (int j = 0; j < KMAX; ++j)
-            if (j < K && valid[j] && ll[j] == a && h1[j] == th1 && h2[j] == th2)
-              m |= 1u << j;
+            for (int j = 0; j < KMAX; ++j)
+              if (j < K && valid[j] && ll[j] == a && h1[j] == th1 && h2[j] == th2)
+                m |= 1u << j;
+          }
           const float pa = PL(k, a);
           const bool is_rep = !CRF && collapse && ll[k] == a;
           const bool pushed = valid[k] && !(pa < thr);
           me = __fmul_rn(is_rep ? gap[k] : lg[k], pa);
-          pu = pushed && (!is_rep || m != 0u || gap[k] > 0.f);
+          pu = (ABL & kAblMatch) ? pushed
+                                 : pushed && (!is_rep || m != 0u || gap[k] > 0.f);
         }
         mext[k][a] = me;
         push[k][a] = pu;
@@ -202,13 +286,15 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       float recv = 0.f;
       bool recv_any = false;
 #pragma unroll
-      for (int k = 0; k < KMAX; ++k)
+      for (int o = 0; o < O; ++o)
 #pragma unroll
-        for (int a = 0; a < AMAX; ++a)
+        for (int i = 0; i < I; ++i) {
+          const int k = V == 3 ? i : o, a = V == 3 ? o : i;
           if (push[k][a] && ((hits[k][a] >> j) & 1u)) {
             recv = __fadd_rn(recv, mext[k][a]);
             recv_any = true;
           }
+        }
       float stay_lab = 0.f;
       bool stay_push = false;
       if (!CRF) {
@@ -241,7 +327,7 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
         v = tip_valid[c];
         total = __fadd_rn(tip_lab[c], tip_gap[c]);
       } else {
-        const int k = (c - KMAX) / AMAX, a = (c - KMAX) % AMAX;
+        const int k = FK(c), a = FA(c);
         v = push[k][a] && hits[k][a] == 0u;
         total = __fadd_rn(mext[k][a], 0.f);  // c_lab + c_gap with c_gap = 0
       }
@@ -251,13 +337,16 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
     }
 
     // ---- top-K: K rounds of (max key, tie -> min id) ----
+    // Version 1 picks each winner's fields in its round; versions 2 and 3
+    // record its source slot (nsrc) and rebuild hashes and labels after.
+    constexpr int R = (ABL & kAblRounds) ? 1 : KMAX;
     float top = 0.f;
     float nlab[KMAX], ngap[KMAX];
     uint32_t nh1[KMAX], nh2[KMAX];
-    int nll[KMAX], nid[KMAX], nst[KMAX];
+    int nll[KMAX], nid[KMAX], nst[KMAX], nsrc[KMAX];
     bool nvalid[KMAX];
 #pragma unroll(UK)
-    for (int r = 0; r < KMAX; ++r) {
+    for (int r = 0; r < R; ++r) {
       nlab[r] = 0.f;
       ngap[r] = 0.f;
       nh1[r] = 0u;
@@ -265,19 +354,23 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       nll[r] = -1;
       nst[r] = 0;
       nid[r] = kEmpty;
+      nsrc[r] = -1;
       nvalid[r] = false;
       if (r >= K) continue;
       float mx = neg_inf();
       int best = -1, best_id = 0x7fffffff;
 #pragma unroll
       for (int c = 0; c < CMAX; ++c) {
-        const int cid = c < KMAX ? id[c]
-                                 : t * KA + ((c - KMAX) / AMAX) * A + (c - KMAX) % AMAX;
+        const int cid = c < KMAX ? id[c] : t * KA + FK(c) * A + FA(c);
         if (key[c] > mx || (key[c] == mx && key[c] > neg_inf() && cid < best_id)) {
           mx = key[c];
           best = c;
           best_id = cid;
         }
+      }
+      if (ABL & kAblHpick) {
+        nh1[r] = (uint32_t)(mx > neg_inf() ? best_id : kEmpty) * 7u;
+        nh2[r] = (uint32_t)(mx > neg_inf() ? best_id : kEmpty) * 13u;
       }
       if (!(mx > neg_inf())) continue;  // no candidate left: slot stays empty
       float sel_lab = 0.f, sel_gap = 0.f;
@@ -288,18 +381,26 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
         if (c < KMAX) {
           sel_lab = tip_lab[c];
           sel_gap = tip_gap[c];
-          nh1[r] = h1[c];
-          nh2[r] = h2[c];
-          nll[r] = ll[c];
-          nst[r] = st[c];
+          if (V == 1) {
+            if (!(ABL & kAblHpick)) {
+              nh1[r] = h1[c];
+              nh2[r] = h2[c];
+            }
+            nll[r] = ll[c];
+            nst[r] = st[c];
+          }
         } else {
-          const int k = (c - KMAX) / AMAX, a = (c - KMAX) % AMAX;
+          const int k = FK(c), a = FA(c);
           sel_lab = mext[k][a];
           sel_gap = 0.f;
-          nh1[r] = mix(h1[k], (uint32_t)a, kMult1, kAdd1);
-          nh2[r] = mix(h2[k], (uint32_t)a, kMult2, kAdd2);
-          nll[r] = a;
-          nst[r] = CRF ? (st[k] * A) % S + a : 0;
+          if (V == 1) {
+            if (!(ABL & kAblHpick)) {
+              nh1[r] = (ABL & kAblMix) ? h1[k] : mix(h1[k], (uint32_t)a, kMult1, kAdd1);
+              nh2[r] = (ABL & kAblMix) ? h2[k] : mix(h2[k], (uint32_t)a, kMult2, kAdd2);
+            }
+            nll[r] = a;
+            nst[r] = CRF ? (st[k] * A) % S + a : 0;
+          }
         }
       }
       // the masked sums of the plain engine add +0.0: canonical -0.0
@@ -309,16 +410,36 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       nlab[r] = sel_lab;
       ngap[r] = sel_gap;
       nid[r] = best_id;
+      nsrc[r] = best;
       nvalid[r] = true;
+    }
+    if (V != 1) {
+      // new parent hashes from each winner's source: a tip keeps its
+      // parent, a fresh (k, a) takes own(k); labels likewise
+#pragma unroll(UK)
+      for (int r = 0; r < KMAX; ++r) {
+        const int c = nsrc[r];
+        const bool fresh = c >= KMAX;
+        const int src = fresh ? FK(c) : c;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          if (j != src) continue;
+          nh1[r] = fresh ? oh1[j] : h1[j];
+          nh2[r] = fresh ? oh2[j] : h2[j];
+          nll[r] = fresh ? FA(c) : ll[j];
+        }
+      }
     }
 
     // ---- status, then the renormalised next beam (true division) ----
-    if (cnt >= 2 && any_nan)
-      err = kIncomparable;
-    else if (cnt == 0)
-      err = kRanOut;
+    if (!(ABL & kAblErr)) {
+      if (cnt >= 2 && any_nan)
+        err = kIncomparable;
+      else if (cnt == 0)
+        err = kRanOut;
+    }
 #pragma unroll
-    for (int r = 0; r < KMAX; ++r) {
+    for (int r = 0; r < R; ++r) {
       lab[r] = nvalid[r] ? __fdiv_rn(nlab[r], top) : 0.f;
       gap[r] = nvalid[r] ? __fdiv_rn(ngap[r], top) : 0.f;
       h1[r] = nh1[r];
@@ -329,23 +450,27 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       valid[r] = nvalid[r];
     }
   }
+#undef FK
+#undef FA
   // a frozen read logs the same entry ids for every remaining step
-  for (int tt = t + 1; tt < T; ++tt) {
+  if (!(ABL & kAblIdlog)) {
+    for (int tt = t + 1; tt < T; ++tt) {
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k)
-      if (k < K) ids_log[((size_t)tt * K + k) * B + b] = id[k];
+      for (int k = 0; k < KMAX; ++k)
+        if (k < K) ids_log[((size_t)tt * K + k) * B + b] = id[k];
+    }
   }
   fin[b] = id[0];
   err_out[b] = err;
 }
 
-template <int KMAX, int AMAX, bool CRF>
+template <int KMAX, int AMAX, bool CRF, int V, int ABL = 0>
 cudaError_t launch_beam_ids(const float* probs, const float* init,
                             const int* lengths, float thr, int B, int T, int S,
                             int Si, int A, int K, int collapse, int* ids_log,
                             int* fin, int* err, cudaStream_t stream) {
   const dim3 grid((B + kBlock - 1) / kBlock);
-  beam_ids_kernel<KMAX, AMAX, CRF><<<grid, kBlock, 0, stream>>>(
+  beam_ids_kernel<KMAX, AMAX, CRF, V, ABL><<<grid, kBlock, 0, stream>>>(
       probs, init, lengths, thr, B, T, S, Si, A, K, collapse, ids_log, fin, err);
   return cudaGetLastError();
 }

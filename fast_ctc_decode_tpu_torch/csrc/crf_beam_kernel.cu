@@ -3,8 +3,9 @@
 // Replaces: fast_ctc_decode_tpu/ops/beam_pallas.py::_crf_beam_kernel (behind
 // crf_beam_search_pallas_batch).  It computes what the plain engine
 // fast_ctc_decode_tpu_torch/ops/beam_fast.py::crf_beam_search_ids_batch
-// computes, bit for bit: the CRF instances of the kernel in beam_core.cuh
-// (its design, bounds and bit-parity rules are described there).  Node ids
+// computes, bit for bit: the CRF instances of the version-1 (own-hash)
+// kernel in beam_core.cuh, as _crf_beam_kernel is (its design, bounds and
+// bit-parity rules are described there).  Node ids
 // are coded as in the 1D kernel, so traceback_kernel.cu walks this id log
 // unchanged.
 //
@@ -30,10 +31,10 @@ int ctc_crf_beam_ids_launch(const float* probs, const float* init,
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K <= 5 && A <= 4)
-    return launch_beam_ids<5, 4, true>(probs, init, lengths, thr, B, T, S, Si, A, K,
+    return launch_beam_ids<5, 4, true, 1>(probs, init, lengths, thr, B, T, S, Si, A, K,
                                        0, ids_log, fin, err, s);
   if (K <= 16 && A <= 7)
-    return launch_beam_ids<16, 7, true>(probs, init, lengths, thr, B, T, S, Si, A, K,
+    return launch_beam_ids<16, 7, true, 1>(probs, init, lengths, thr, B, T, S, Si, A, K,
                                         0, ids_log, fin, err, s);
   return cudaErrorInvalidValue;
 }

@@ -145,6 +145,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: argtypes of every launch function (all return an int cudaError_t)
 SIGNATURES = {
     "ctc_beam_ids_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ctc_beam_ids_v1_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ctc_beam_ids_v3_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ctc_beam_ablate_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ctc_traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "ctc_crf_beam_ids_launch": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ctc_exact_beam_launch": [

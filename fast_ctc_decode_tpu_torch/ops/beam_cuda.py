@@ -1,13 +1,24 @@
 """Hand-written CUDA kernels of the batched hash-identity beam paths (1D and
 CRF), with their plain versions.
 
-Three kernels, built from ``csrc/`` by ``ops/_build.py`` and launched through
+Five kernels, built from ``csrc/`` by ``ops/_build.py`` and launched through
 ctypes on PyTorch's current stream:
 
- - ``beam_ids_kernel`` (``csrc/beam_kernel.cu``) replaces
-   ``fast_ctc_decode_tpu/ops/beam_pallas.py::_beam_kernel2``: the fused
-   T-loop beam, one thread per read.  Plain version:
-   ``beam_fast.beam_search_ids_batch``.
+ - ``beam_ids_kernel`` launches one of three versions of the fused T-loop
+   beam, one thread per read (``csrc/beam_core.cuh`` describes them); all
+   compute one function, whose plain version is
+   ``beam_fast.beam_search_ids_batch``:
+
+   - version 2, the default (``csrc/beam_kernel.cu``), replaces
+     ``fast_ctc_decode_tpu/ops/beam_pallas.py::_beam_kernel2`` (parent-hash
+     identity);
+   - version 1 (``csrc/beam_v1_kernel.cu``) replaces ``_beam_kernel``
+     (own-hash identity);
+   - version 3 (``csrc/beam_v3_kernel.cu``) replaces ``_beam_kernel3``
+     (version 2 with the candidates enumerated a-major).
+
+   They exist side by side for the A/B tool ``tools/ab_bench.py``, as
+   ``beam_search_pallas_batch(version=...)`` does in the JAX package.
  - ``traceback_kernel`` (``csrc/traceback_kernel.cu``) replaces
    ``beam_pallas.py::_traceback_kernel`` plus the key sort of
    ``beam_fast._sort_unpack_keys``: a direct walk of the id log, one thread
@@ -31,8 +42,16 @@ import torch
 from . import _build
 from . import beam_fast
 
-#: kernel launches per wrapper since the last reset (plain integers)
-launches = {"beam": 0, "traceback": 0, "crf_beam": 0}
+#: kernel launches per wrapper since the last reset (plain integers); "beam"
+#: counts version 2, "beam_v1" / "beam_v3" the A/B versions
+launches = {"beam": 0, "beam_v1": 0, "beam_v3": 0, "traceback": 0, "crf_beam": 0}
+
+#: version -> (C launch function, launch counter)
+VERSIONS = {
+    1: ("ctc_beam_ids_v1_launch", "beam_v1"),
+    2: ("ctc_beam_ids_launch", "beam"),
+    3: ("ctc_beam_ids_v3_launch", "beam_v3"),
+}
 
 MAX_BEAM = 16  # per-thread beam arrays of the widest kernel instance
 MAX_A1 = 8  # blank + at most 7 labels
@@ -80,11 +99,20 @@ def _raise_for(rc, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def beam_ids_kernel(probs, lengths, thr, *, beam_size, collapse_repeats=True):
+def _version(version):
+    if version not in VERSIONS:
+        raise ValueError(f"unknown beam kernel version {version!r}; known: {sorted(VERSIONS)}")
+    return VERSIONS[version]
+
+
+def beam_ids_kernel(probs, lengths, thr, *, beam_size, collapse_repeats=True, version=2):
     """Forward beam: ``(ids_log [T, K, B], fin [B], err [B])``, all int32.
 
     probs: [B, T, A+1] f32 contiguous; lengths: [B] i32 on the same device.
+    ``version`` (1, 2 or 3) picks the kernel on a CUDA tensor; every version
+    computes the same outputs, so a CPU tensor runs the plain version for any.
     """
+    fn_name, counter = _version(version)
     if not isinstance(probs, torch.Tensor) or probs.dim() != 3:
         raise ValueError("probs must be a [B, T, A+1] torch.Tensor")
     B, T, A1 = probs.shape
@@ -104,14 +132,14 @@ def beam_ids_kernel(probs, lengths, thr, *, beam_size, collapse_repeats=True):
         return ids_log, fin, err
     lib = _build.load_library()
     with torch.cuda.device(dev):
-        rc = lib.ctc_beam_ids_launch(
+        rc = getattr(lib, fn_name)(
             probs.data_ptr(), lengths.data_ptr(), float(thr),
             B, T, A1 - 1, K, int(bool(collapse_repeats)),
             ids_log.data_ptr(), fin.data_ptr(), err.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_for(rc, "beam kernel")
-    launches["beam"] += 1
+    _raise_for(rc, f"beam kernel (version {version})")
+    launches[counter] += 1
     return ids_log, fin, err
 
 
@@ -201,14 +229,20 @@ def traceback_kernel(fin, ids_log, *, T, K, A):
 
 
 def beam_search_kernel_batch(
-    probs, lengths, thr, *, beam_size, collapse_repeats=True
+    probs, lengths, thr, *, beam_size, collapse_repeats=True, version=2, raw=False
 ):
     """Both kernels in turn; the output dict of
-    ``beam_fast.beam_search_fast_batch`` (labels_rev, times_rev, count, err)."""
+    ``beam_fast.beam_search_fast_batch`` (labels_rev, times_rev, count, err).
+
+    ``version`` picks the beam kernel (1, 2 or 3).  ``raw=True`` stops after
+    it and returns ``{"ids_log" [T, K, B], "fin" [B], "err" [B]}``, as
+    ``beam_search_pallas_batch(raw=True)`` returns the kernel's outputs."""
     ids_log, fin, err = beam_ids_kernel(
         probs, lengths, thr, beam_size=beam_size,
-        collapse_repeats=collapse_repeats,
+        collapse_repeats=collapse_repeats, version=version,
     )
+    if raw:
+        return {"ids_log": ids_log, "fin": fin, "err": err}
     T, A = probs.shape[1], probs.shape[2] - 1
     labels_rev, times_rev, count = traceback_kernel(
         fin, ids_log, T=T, K=int(beam_size), A=A

@@ -3,11 +3,13 @@ duplex pair consensus (plain and CRF).
 
 Reads arrive as padded posterior batches (``[B, T, A+1]``; CRF
 ``[B, T, S, A+1]`` plus ``[B, Si]`` init states) with per-read lengths,
-are decoded on the caller's ``device``, and only fixed-width arrays plus
-counters come back to the host, where ragged strings are assembled.  Port
-of ``fast_ctc_decode_tpu/parallel/pipeline.py``: the JAX package's data mesh
-is replaced by an explicit ``device`` (so B need not divide a device
-count); running on several cards is later work.
+are decoded on ``device`` (None, the default, is the CUDA card and raises
+without one; ``device="cpu"`` asks for the plain engines on the CPU), and
+only fixed-width arrays plus counters come back to the host, where ragged
+strings are assembled.  Port of ``fast_ctc_decode_tpu/parallel/pipeline.py``:
+the JAX package's data mesh is replaced by an explicit ``device`` (so B need
+not divide a device count); several cards run one process each
+(``parallel/mesh.py``), and ``decode_and_count`` sums their counters.
 
 Engines of the beam decoders:
   - "cuda": the hand-written hash-identity kernels (``ops/beam_cuda.py``);
@@ -33,6 +35,7 @@ import torch
 
 from .. import errors
 from ..alphabet import normalize_alphabet
+from ..device import resolve_device
 from ..ops import beam as beam_ops
 from ..ops import beam_cuda
 from ..ops import beam_exact_cuda
@@ -122,14 +125,14 @@ class BatchBeamDecoder:
         collapse_repeats: bool = True,
         max_nodes: Optional[int] = None,
         engine: Optional[str] = None,
-        device="cpu",
+        device=None,
     ):
         self.alphabet = normalize_alphabet(alphabet)
         self.T = int(T)
         self.beam_size = int(beam_size)
         self.threshold = np.float32(beam_cut_threshold)
         self.collapse = bool(collapse_repeats)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.engine = _resolve(engine, self.device)
         self.max_nodes = None
         if self.engine == "exact":
@@ -179,14 +182,14 @@ class BatchViterbiDecoder:
         collapse_repeats: bool = True,
         qscale: float = 1.0,
         qbias: float = 0.0,
-        device="cpu",
+        device=None,
     ):
         self.alphabet = normalize_alphabet(alphabet)
         self.T = int(T)
         self.collapse = bool(collapse_repeats)
         self.qscale = np.float32(qscale)
         self.qbias = np.float32(qbias)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def decode_arrays(self, probs, lengths):
         """Device decode only: tokens, path, qints, n (tensors on ``device``)."""
@@ -235,14 +238,14 @@ class BatchCrfBeamDecoder:
         beam_size: int = 5,
         beam_cut_threshold: float = 0.0,
         engine: Optional[str] = None,
-        device="cpu",
+        device=None,
     ):
         self.alphabet = normalize_alphabet(alphabet)
         self.T = int(T)
         self.n_state = int(n_state)
         self.beam_size = int(beam_size)
         self.threshold = np.float32(beam_cut_threshold)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.engine = _resolve(engine, self.device)
         self.max_nodes = None
         if self.engine == "exact":
@@ -288,21 +291,26 @@ class BatchCrfBeamDecoder:
 
 
 def decode_and_count(
-    probs, lengths, *, beam_size, threshold, collapse, engine=None, device="cpu"
+    probs, lengths, *, beam_size, threshold, collapse, engine=None, device=None
 ):
     """Decode one batch and count its reads: ``(out, totals)`` with
     ``totals = [decoded OK, errored]`` (int32 tensor on ``device``).
 
-    The JAX package merges these counters across its mesh with a psum; here
-    the sum is local to the one device."""
-    dev = torch.device(device)
+    When the default process group exists (``parallel.mesh.distributed_init``),
+    each process passes its own shard of the reads and ``totals`` is summed
+    over every process with ``all_reduce``, as the JAX package's ``psum``
+    over its data axis: all processes agree on the global counters."""
+    dev = resolve_device(device)
     out = _decode_arrays(
         _resolve(engine, dev), dev, probs, lengths, threshold, beam_size,
         collapse,
     )
     ok = (out["err"] == errors.OK).sum(dtype=torch.int32)
     bad = (out["err"] != errors.OK).sum(dtype=torch.int32)
-    return out, torch.stack([ok, bad])
+    totals = torch.stack([ok, bad])
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        torch.distributed.all_reduce(totals)
+    return out, totals
 
 
 def _bucket_edge_for(T: int, min_edge: int = 128) -> int:
@@ -339,7 +347,7 @@ def decode_many(
     T: Optional[int] = None,
     bucket_edges: Optional[Sequence[int]] = None,
     engine: Optional[str] = None,
-    device="cpu",
+    device=None,
     checkpoint_path: Optional[str] = None,
 ) -> List[Tuple[str, List[int], int]]:
     """Decode a long list of variable-length reads with checkpoint/resume.
@@ -360,7 +368,7 @@ def decode_many(
 
     if not reads:
         return []
-    dev = torch.device(device)
+    dev = resolve_device(device)
     engine = _resolve(engine, dev)
     if T is not None:
         edges = [int(T)]
@@ -442,7 +450,7 @@ def decode_many_crf(
     beam_cut_threshold: float = 0.0,
     batch_size: int = 256,
     engine: Optional[str] = None,
-    device="cpu",
+    device=None,
     checkpoint_path: Optional[str] = None,
 ) -> List[Tuple[str, List[int], int]]:
     """Checkpointable streaming CRF decode: ``decode_many`` for the CRF
@@ -457,7 +465,7 @@ def decode_many_crf(
 
     if not reads:
         return []
-    dev = torch.device(device)
+    dev = resolve_device(device)
     engine = _resolve(engine, dev)
     edges = _auto_bucket_edges([r[0].shape[0] for r in reads])
     S = reads[0][0].shape[1]
@@ -710,14 +718,14 @@ class BatchDuplexDecoder:
         beam_cut_threshold: float = 0.0,
         collapse_repeats: bool = True,
         engine: Optional[str] = None,
-        device="cpu",
+        device=None,
     ):
         self.alphabet = normalize_alphabet(alphabet)
         self.T1, self.T2 = int(T1), int(T2)
         self.beam_size = int(beam_size)
         self.threshold = float(beam_cut_threshold)
         self.collapse = bool(collapse_repeats)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if engine not in (None, *DUPLEX_ENGINES):
             raise ValueError(f"unknown engine {engine!r}")
         if engine == "cuda" and self.device.type != "cuda":
@@ -779,14 +787,14 @@ class BatchCrfDuplexDecoder:
         beam_size: int = 5,
         beam_cut_threshold: float = 0.0,
         engine: Optional[str] = None,
-        device="cpu",
+        device=None,
     ):
         self.alphabet = normalize_alphabet(alphabet)
         self.T1, self.T2 = int(T1), int(T2)
         self.S = int(n_state)
         self.beam_size = int(beam_size)
         self.threshold = float(beam_cut_threshold)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if engine not in (None, "fast", "exact"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
@@ -824,7 +832,7 @@ def decode_many_duplex(
     collapse_repeats: bool = True,
     batch_size: int = 64,
     engine: Optional[str] = None,
-    device="cpu",
+    device=None,
     checkpoint_path: Optional[str] = None,
 ) -> List[Tuple[str, int]]:
     """Decode a long list of read pairs with checkpoint/resume — the duplex
@@ -844,6 +852,7 @@ def decode_many_duplex(
 
     if not pairs:
         return []
+    device = resolve_device(device)
     e1s = _auto_bucket_edges([p[0].shape[0] for p in pairs])
     e2s = _auto_bucket_edges([p[1].shape[0] for p in pairs])
 

@@ -63,33 +63,33 @@ def crf_fixture():
 
 
 def test_rust_viterbi_fixtures():
-    assert port_api.viterbi_search(RUST_VITERBI, "NAG", False, 1.0, 0.0, True) == ("GGAG", [0, 5, 7, 9])
-    assert port_api.viterbi_search(RUST_VITERBI, "NAG", True, 1.0, 0.0, True) == ("GGAG%$$(", [0, 5, 7, 9])
+    assert port_api.viterbi_search(RUST_VITERBI, "NAG", False, 1.0, 0.0, True, device="cpu") == ("GGAG", [0, 5, 7, 9])
+    assert port_api.viterbi_search(RUST_VITERBI, "NAG", True, 1.0, 0.0, True, device="cpu") == ("GGAG%$$(", [0, 5, 7, 9])
     for qstring in (False, True):
         for collapse in (True, False):
             args = (BLANK_BOUNDS, "NAG", qstring, 1.0, 0.0, collapse)
-            assert port_api.viterbi_search(*args) == jax_api.viterbi_search(*args)
-    assert port_api.viterbi_search(BLANK_BOUNDS, "NAG", True, 1.0, 0.0, False) == (
+            assert port_api.viterbi_search(*args, device="cpu") == jax_api.viterbi_search(*args)
+    assert port_api.viterbi_search(BLANK_BOUNDS, "NAG", True, 1.0, 0.0, False, device="cpu") == (
         "GGGGGAG%&##$$(", [2, 3, 4, 7, 8, 9, 11]
     )
 
 
 @pytest.mark.parametrize("engine", ["exact", "fast"])
 def test_wasm_beam_golden(engine):
-    assert port_api.beam_search(BLANK_BOUNDS, "NAG", 5, 0.0, True, engine=engine)[0] == "GAGAG"
-    assert port_api.beam_search(BLANK_BOUNDS, "NAG", 5, 0.0, False, engine=engine)[0] == "GGGAGAG"
+    assert port_api.beam_search(BLANK_BOUNDS, "NAG", 5, 0.0, True, engine=engine, device="cpu")[0] == "GAGAG"
+    assert port_api.beam_search(BLANK_BOUNDS, "NAG", 5, 0.0, False, engine=engine, device="cpu")[0] == "GGGAGAG"
     for collapse in (True, False):
         args = (BLANK_BOUNDS, "NAG", 5, 0.0, collapse)
-        assert port_api.beam_search(*args, engine=engine) == jax_api.beam_search(*args, engine=engine)
+        assert port_api.beam_search(*args, engine=engine, device="cpu") == jax_api.beam_search(*args, engine=engine)
 
 
 def test_crf_fixture():
     x, init = crf_fixture()
-    assert port_api.crf_greedy_search(x, init, ALPHABET, False, 1.0, 0.0) == ("CTAAG", [1, 2, 4, 5, 6])
-    assert port_api.crf_greedy_search(x, init, ALPHABET, True, 1.0, 0.0) == ("CTAAG+&5+?", [1, 2, 4, 5, 6])
-    assert port_api.crf_beam_search(x, init, ALPHABET, 5, 0.01) == ("CTAAG", [1, 2, 4, 5, 6])
+    assert port_api.crf_greedy_search(x, init, ALPHABET, False, 1.0, 0.0, device="cpu") == ("CTAAG", [1, 2, 4, 5, 6])
+    assert port_api.crf_greedy_search(x, init, ALPHABET, True, 1.0, 0.0, device="cpu") == ("CTAAG+&5+?", [1, 2, 4, 5, 6])
+    assert port_api.crf_beam_search(x, init, ALPHABET, 5, 0.01, device="cpu") == ("CTAAG", [1, 2, 4, 5, 6])
     for engine in ("exact", "fast"):
-        assert port_api.crf_beam_search(x, init, ALPHABET, 5, 0.01, engine=engine) == jax_api.crf_beam_search(
+        assert port_api.crf_beam_search(x, init, ALPHABET, 5, 0.01, engine=engine, device="cpu") == jax_api.crf_beam_search(
             x, init, ALPHABET, 5, 0.01, engine=engine
         )
 
@@ -101,22 +101,22 @@ def test_reference_path_fixtures():
     for idx in (6, 13, 18):
         x[idx, 0] = 0.0
         x[idx, 1] = 1.0
-    assert port_api.beam_search(x, ALPHABET, 5, 0.1) == ("AAA", [6, 13, 18])
-    assert port_api.viterbi_search(x, ALPHABET, qstring=True) == ("AAAIII", [6, 13, 18])
+    assert port_api.beam_search(x, ALPHABET, 5, 0.1, device="cpu") == ("AAA", [6, 13, 18])
+    assert port_api.viterbi_search(x, ALPHABET, qstring=True, device="cpu") == ("AAAIII", [6, 13, 18])
     multi = ["N", "AAA", "CCC", "GGG", "TTTT"]
     y = np.zeros((w, 5), np.float32)
     y[:, 0] = 0.5
     for i, idx in enumerate((6, 13, 18)):
         y[idx, 0] = 0.0
         y[idx, 1 + i] = 1.0
-    assert port_api.beam_search(y, multi, 5, 0.1) == ("AAACCCGGG", [6, 13, 18])
+    assert port_api.beam_search(y, multi, 5, 0.1, device="cpu") == ("AAACCCGGG", [6, 13, 18])
     w = 400
     z = np.zeros((w, 5), np.float32)
     z[:, 0] = 0.5
     emit = np.arange(0, w, 4)
     for base, pos in enumerate(emit):
         z[pos, base % 4 + 1] = 1.0
-    assert port_api.beam_search(z, ALPHABET, 5, 0.1)[1] == emit.tolist()
+    assert port_api.beam_search(z, ALPHABET, 5, 0.1, device="cpu")[1] == emit.tolist()
 
 
 def _nan_data():
@@ -164,7 +164,7 @@ PROBES = [
 def test_error_probes_equal_jax(i):
     name, args, kwargs = PROBES[i]
     want = outcome(getattr(jax_api, name), *args, **kwargs)
-    got = outcome(getattr(port_api, name), *args, **kwargs)
+    got = outcome(getattr(port_api, name), *args, **kwargs, device="cpu")
     assert got == want
 
 
@@ -174,16 +174,16 @@ def test_exact_engine_equals_oracle(seed):
     for thr in (0.0, 0.1):
         for collapse in (True, False):
             want = oracle.beam_search(x, ALPHABET, 5, thr, collapse)
-            assert port_api.beam_search(x, ALPHABET, 5, thr, collapse) == want
-            assert port_api.beam_search(x, ALPHABET, 5, thr, collapse, engine="fast")[0] == want[0]
+            assert port_api.beam_search(x, ALPHABET, 5, thr, collapse, device="cpu") == want
+            assert port_api.beam_search(x, ALPHABET, 5, thr, collapse, engine="fast", device="cpu")[0] == want[0]
     rng = np.random.RandomState(seed)
     c = rng.rand(40, 16, 5).astype(np.float32)
     c /= c.sum(-1, keepdims=True)
     init = rng.rand(16).astype(np.float32)
     for thr in (0.0, 0.05):
         want = oracle.crf_beam_search(c, init, ALPHABET, 5, thr)
-        assert port_api.crf_beam_search(c, init, ALPHABET, 5, thr) == want
-        assert port_api.crf_beam_search(c, init, ALPHABET, 5, thr, engine="fast")[0] == want[0]
+        assert port_api.crf_beam_search(c, init, ALPHABET, 5, thr, device="cpu") == want
+        assert port_api.crf_beam_search(c, init, ALPHABET, 5, thr, engine="fast", device="cpu")[0] == want[0]
 
 
 def test_long_alphabet_and_wide_beam_on_the_cpu():
@@ -191,7 +191,7 @@ def test_long_alphabet_and_wide_beam_on_the_cpu():
     alphabet = "NABCDEFGHIJK"
     x = random_data(60, alphabet=alphabet, seed=4)
     for engine in ("exact", "fast"):
-        assert port_api.beam_search(x, alphabet, 20, 0.0, engine=engine) == jax_api.beam_search(
+        assert port_api.beam_search(x, alphabet, 20, 0.0, engine=engine, device="cpu") == jax_api.beam_search(
             x, alphabet, 20, 0.0, engine=engine
         )
 
@@ -206,13 +206,13 @@ def test_batch_exact_decoder_and_decode_many_equal_the_api():
     assert dec.max_nodes == 40 * 5 * 4 + 8
     got = dec.decode(probs, lengths)
     want = [
-        port_api.beam_search(probs[i, :n], ALPHABET, 5, 0.1) + (0,) if n else ("", [], 0)
+        port_api.beam_search(probs[i, :n], ALPHABET, 5, 0.1, device="cpu") + (0,) if n else ("", [], 0)
         for i, n in enumerate(lengths)
     ]
     assert got == want
     reads = [probs[i, :n] for i, n in enumerate(lengths) if n]
     many = port_pipeline.decode_many(reads, ALPHABET, beam_size=5, beam_cut_threshold=0.1,
-                                     engine="exact", batch_size=2)
+                                     engine="exact", batch_size=2, device="cpu")
     assert many == [w for w, n in zip(want, lengths) if n]
     # a budget too small for a read stops it with NODE_OVERFLOW, no re-run
     small = port_pipeline.BatchBeamDecoder("NACGT", T=40, beam_size=5, beam_cut_threshold=0.1,

@@ -75,7 +75,7 @@ PROBES = [
 
 @pytest.mark.parametrize("name,args,kw", PROBES, ids=[p[0] for p in PROBES])
 def test_duplex_error_probes_match_jax(name, args, kw):
-    got = outcome(port_api.beam_search_duplex, *args, **kw)
+    got = outcome(port_api.beam_search_duplex, *args, **kw, device="cpu")
     want = outcome(jax_api.beam_search_duplex, *args, **kw)
     assert got[0] != "ok" and got == want
 
@@ -92,10 +92,10 @@ CRF_PROBES = [
 @pytest.mark.parametrize("name,kw", CRF_PROBES, ids=[p[0] for p in CRF_PROBES])
 def test_crf_duplex_error_probes_match_jax(name, kw):
     args = (C1, I1, C2, I2, ALPHA)
-    got = outcome(port_api.crf_beam_search_duplex, *args, **kw)
+    got = outcome(port_api.crf_beam_search_duplex, *args, **kw, device="cpu")
     want = outcome(jax_api.crf_beam_search_duplex, *args, **kw)
     assert got[0] != "ok" and got == want
-    got = outcome(port_api.crf_beam_search_duplex, C1[:, :, :4], I1, C2, I2, ALPHA)
+    got = outcome(port_api.crf_beam_search_duplex, C1[:, :, :4], I1, C2, I2, ALPHA, device="cpu")
     assert got == outcome(jax_api.crf_beam_search_duplex, C1[:, :, :4], I1, C2, I2, ALPHA)
 
 
@@ -104,7 +104,7 @@ def test_invalid_envelope_raises_the_reference_error():
     bad[4, 1] = bad[4, 0]
     for engine in (None, "fast", "exact"):
         with pytest.raises(errors.SearchError, match="Invalid envelope values"):
-            port_api.beam_search_duplex(P1, P2, ALPHA, envelope=bad, engine=engine)
+            port_api.beam_search_duplex(P1, P2, ALPHA, envelope=bad, engine=engine, device="cpu")
 
 
 def test_api_equals_oracle_on_every_engine():
@@ -112,17 +112,17 @@ def test_api_equals_oracle_on_every_engine():
         p1, p2 = pair(seed)
         want_full = oracle.beam_search_duplex(p1, p2, ALPHA)
         want_diag = oracle.beam_search_duplex(p1, p2, ALPHA, envelope=ENV)
-        assert port_api.beam_search_duplex(p1, p2, ALPHA) == want_full  # auto: fast
-        assert port_api.beam_search_duplex(p1, p2, ALPHA, engine="exact") == want_full
-        assert port_api.beam_search_duplex(p1, p2, ALPHA, envelope=ENV) == want_diag  # auto: exact
+        assert port_api.beam_search_duplex(p1, p2, ALPHA, device="cpu") == want_full  # auto: fast
+        assert port_api.beam_search_duplex(p1, p2, ALPHA, engine="exact", device="cpu") == want_full
+        assert port_api.beam_search_duplex(p1, p2, ALPHA, envelope=ENV, device="cpu") == want_diag  # auto: exact
     c1, i1, c2, i2 = crf_pair(5)
     want = oracle.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA)
-    assert port_api.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA) == want
+    assert port_api.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA, device="cpu") == want
     want = oracle.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA, envelope=ENV)
-    assert port_api.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA, envelope=ENV) == want
+    assert port_api.crf_beam_search_duplex(c1, i1, c2, i2, ALPHA, envelope=ENV, device="cpu") == want
     # a too small tree budget surfaces as NODE_OVERFLOW
     with pytest.raises(errors.SearchError, match="node budget"):
-        port_api.beam_search_duplex(P1, P2, ALPHA, envelope=ENV, max_nodes=10)
+        port_api.beam_search_duplex(P1, P2, ALPHA, envelope=ENV, max_nodes=10, device="cpu")
 
 
 @pytest.mark.parametrize("engine", [None, "fast", "exact"])
@@ -131,7 +131,7 @@ def test_batch_decoder_equals_single_read(engine):
     n1 = np.stack([p[0] for p in ps])
     n2 = np.stack([p[1] for p in ps])
     envs = np.stack([diag_env(T1, T2, w) for w in (2, 3, 4)])
-    dec = BatchDuplexDecoder(ALPHA, T1=T1, T2=T2, engine=engine)
+    dec = BatchDuplexDecoder(ALPHA, T1=T1, T2=T2, engine=engine, device="cpu")
     for env in (None, ENV, envs):
         lengths = np.array([T1, 7, 0], np.int32)
         got = dec.decode(n1, n2, envelopes=env, lengths=lengths)
@@ -140,7 +140,7 @@ def test_batch_decoder_equals_single_read(engine):
             want = port_api.beam_search_duplex(
                 ps[b][0][: lengths[b]], ps[b][1], ALPHA,
                 envelope=None if e is None else e[: lengths[b]],
-                engine=engine or ("fast" if env is None else "exact"),
+                engine=engine or ("fast" if env is None else "exact"), device="cpu",
             )
             assert got[b] == (want, errors.OK)
     out = dec.decode_arrays(n1, n2)
@@ -151,23 +151,23 @@ def test_crf_batch_decoder_equals_single_read():
     cs = [crf_pair(20 + i) for i in range(2)]
     stack = lambda i: np.stack([c[i] for c in cs])  # noqa: E731
     for engine, env in ((None, None), (None, ENV), ("fast", ENV), ("exact", None)):
-        dec = BatchCrfDuplexDecoder(ALPHA, T1=T1, T2=T2, n_state=16, engine=engine)
+        dec = BatchCrfDuplexDecoder(ALPHA, T1=T1, T2=T2, n_state=16, engine=engine, device="cpu")
         got = dec.decode(stack(0), stack(1), stack(2), stack(3), envelopes=env)
         for b in range(2):
             want = port_api.crf_beam_search_duplex(
                 *cs[b], ALPHA, envelope=env,
-                engine=engine or ("fast" if env is None else "exact"),
+                engine=engine or ("fast" if env is None else "exact"), device="cpu",
             )
             assert got[b] == (want, errors.OK)
 
 
 def test_decoder_engine_checks():
     with pytest.raises(ValueError, match="unknown engine"):
-        BatchDuplexDecoder(ALPHA, T1=4, T2=4, engine="pallas")
+        BatchDuplexDecoder(ALPHA, T1=4, T2=4, engine="pallas", device="cpu")
     with pytest.raises(ValueError, match="needs a CUDA device"):
-        BatchDuplexDecoder(ALPHA, T1=4, T2=4, engine="cuda")
+        BatchDuplexDecoder(ALPHA, T1=4, T2=4, engine="cuda", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
-        BatchCrfDuplexDecoder(ALPHA, T1=4, T2=4, n_state=4, engine="cuda")
+        BatchCrfDuplexDecoder(ALPHA, T1=4, T2=4, n_state=4, engine="cuda", device="cpu")
 
 
 def test_auto_engine_routing_on_a_cuda_device(monkeypatch):
@@ -192,13 +192,13 @@ def test_auto_engine_routing_on_a_cuda_device(monkeypatch):
     def route(beam=5, env=None, crf=False):
         seen.clear()
         if crf:
-            dec = BatchCrfDuplexDecoder(ALPHA, T1=T1, T2=T2, n_state=16, beam_size=beam)
+            dec = BatchCrfDuplexDecoder(ALPHA, T1=T1, T2=T2, n_state=16, beam_size=beam, device="cpu")
             monkeypatch.setattr(dec, "device", cuda)
             got = dec.decode(C1[None], I1[None], C2[None], I2[None], envelopes=env)
             one = port_api.crf_beam_search_duplex(C1, I1, C2, I2, ALPHA, envelope=env,
                                                   beam_size=beam, device="cuda")
         else:
-            dec = BatchDuplexDecoder(ALPHA, T1=T1, T2=T2, beam_size=beam)
+            dec = BatchDuplexDecoder(ALPHA, T1=T1, T2=T2, beam_size=beam, device="cpu")
             monkeypatch.setattr(dec, "device", cuda)
             got = dec.decode(P1[None], P2[None], envelopes=env)
             one = port_api.beam_search_duplex(P1, P2, ALPHA, envelope=env, beam_size=beam,
@@ -239,7 +239,7 @@ def test_decode_many_duplex_resumes_a_jax_checkpoint(tmp_path):
     ckpt = os.path.join(tmp_path, "duplex.jsonl")
     half = jax_pipeline.decode_many_duplex(pairs[:3], ALPHA, checkpoint_path=ckpt, **kw)
     assert half == want[:3]
-    got = decode_many_duplex(pairs, ALPHA, checkpoint_path=ckpt, **kw)
+    got = decode_many_duplex(pairs, ALPHA, checkpoint_path=ckpt, device="cpu", **kw)
     assert got == want
-    assert decode_many_duplex(pairs, ALPHA, **kw) == want  # uninterrupted, in the port
+    assert decode_many_duplex(pairs, ALPHA, device="cpu", **kw) == want  # uninterrupted, in the port
     assert all(e == errors.OK for _, e in got)

@@ -100,7 +100,7 @@ def test_decode_and_count_is_a_local_sum():
     probs, lengths = ragged_batch(B=8, T=24, seed=2)
     probs[1, 0, :] = np.nan
     out, totals = port_pipeline.decode_and_count(
-        probs, lengths, beam_size=5, threshold=0.1, collapse=True
+        probs, lengths, beam_size=5, threshold=0.1, collapse=True, device="cpu"
     )
     assert totals.tolist() == [7, 1]
     assert int(out["err"][1]) == port_errors.INCOMPARABLE_VALUES
@@ -116,8 +116,9 @@ def test_engine_choice_raises(engine, device):
 
 
 def test_engine_default_follows_device():
-    assert port.BatchBeamDecoder("NACGT", T=10).engine == "fast"
+    assert port.BatchBeamDecoder("NACGT", T=10, device="cpu").engine == "fast"
     assert port.BatchBeamDecoder("NACGT", T=10, device="cpu").device.type == "cpu"
+    assert port.BatchBeamDecoder("NACGT", T=10, device="cuda").engine == "cuda"
 
 
 def test_errors_and_host_layer_match_jax():
@@ -152,17 +153,20 @@ def test_port_imports_no_jax():
         "from fast_ctc_decode_tpu_torch.parallel import pipeline\n"
         "c = np.random.RandomState(1).rand(12, 4, 5).astype(np.float32)\n"
         "s = np.full((4,), 0.25, np.float32)\n"
-        "assert api.beam_search(c[:, 0], 'NACGT', 5, 0.1)[0]\n"
-        "assert api.crf_beam_search(c, s, 'NACGT', 5, 0.01)[0]\n"
-        "assert api.viterbi_search(c[:, 0], 'NACGT')[0] and api.crf_greedy_search(c, s, 'NACGT')\n"
+        "assert api.beam_search(c[:, 0], 'NACGT', 5, 0.1, device='cpu')[0]\n"
+        "assert api.crf_beam_search(c, s, 'NACGT', 5, 0.01, device='cpu')[0]\n"
+        "assert api.viterbi_search(c[:, 0], 'NACGT', device='cpu')[0]"
+        " and api.crf_greedy_search(c, s, 'NACGT', device='cpu')\n"
         "x = np.random.RandomState(0).rand(2, 20, 5).astype(np.float32)\n"
-        "r = m.BatchBeamDecoder('NACGT', T=20, beam_cut_threshold=0.1).decode(x, np.array([20, 9]))\n"
+        "r = m.BatchBeamDecoder('NACGT', T=20, beam_cut_threshold=0.1, device='cpu').decode(x, np.array([20, 9]))\n"
         "assert len(r) == 2 and r[0][2] == 0\n"
         "e = np.stack([np.zeros(12, np.int64), np.minimum(np.arange(12) + 3, 12)], 1)\n"
-        "assert api.beam_search_duplex(c[:, 0], c[:, 1], 'NACGT', envelope=e)\n"
-        "assert api.crf_beam_search_duplex(c, s, c, s, 'NACGT', beam_cut_threshold=0.01)\n"
-        "d = m.BatchDuplexDecoder('NACGT', T1=12, T2=12).decode(c[None, :, 0], c[None, :, 1])\n"
-        "assert d[0][1] == 0 and m.decode_many_duplex([(c[:, 0], c[:, 1], e)], 'NACGT')[0][1] == 0\n"
+        "assert api.beam_search_duplex(c[:, 0], c[:, 1], 'NACGT', envelope=e, device='cpu')\n"
+        "assert api.crf_beam_search_duplex(c, s, c, s, 'NACGT', beam_cut_threshold=0.01,"
+        " device='cpu')\n"
+        "d = m.BatchDuplexDecoder('NACGT', T1=12, T2=12, device='cpu').decode(c[None, :, 0], c[None, :, 1])\n"
+        "assert d[0][1] == 0 and m.decode_many_duplex([(c[:, 0], c[:, 1], e)], 'NACGT',"
+        " device='cpu')[0][1] == 0\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'fast_ctc_decode_tpu' or k.startswith('fast_ctc_decode_tpu.')]\n"
         "print('LEAKED', bad)\n"
