@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 Phases, each of which raises on failure (exit code non-zero):
   1. builds the CUDA kernels from ``fast_ctc_decode_tpu_torch/csrc`` with nvcc
      (sm_90a, one compiler per source, all at once) and prints the card, the
-     versions, the build time and ptxas's register/spill lines;
+     versions, the build time, ptxas's register/spill lines and, for the two
+     duplex kernels, block size, shared memory and blocks per SM;
   2. holds each 1D kernel against its plain PyTorch version on the card, bit
      for bit: the three versions of the beam kernel (1, 2 = the default, 3)
      and the traceback, on the shapes of the CPU tests (a +-inf/NaN batch,
@@ -36,12 +37,20 @@ Phases, each of which raises on failure (exit code non-zero):
      checkpoint equal to an uninterrupted run;
   7. times the new kernels against their plain versions (CUDA events) and
      the new decoders' ``decode_arrays`` / ``decode`` (wall), medians of 5;
-  8. holds the duplex slot kernel and the exact duplex tree kernel (plain
-     and CRF) to their plain versions on the card, 0 differing entries of
-     the output dict: full range, diagonal, dipping upper bound, invalid
-     envelope, zero-probability and NaN rows, ragged and zero lengths, beam 1
-     and the widest beam, a small ``max_nodes``, CRF S=16 and S=9, per-pair
-     envelopes; inputs outside a kernel's bounds raise;
+  8. checks the duplex kernels' straight-line exp / log1p against the CUDA
+     math library on all 2^32 float arguments, then holds the duplex slot
+     kernel and the exact duplex tree kernel (plain and CRF) to their plain
+     versions on the card, 0 differing entries of the output dict, with
+     random bits in the kernels' scratch memory: full range, diagonal,
+     dipping upper bound, invalid envelope, zero-probability and NaN rows,
+     ragged and zero lengths, beam 1 and the widest beam, a small
+     ``max_nodes``, CRF S=16 and S=9, per-pair envelopes; window widths that
+     are no multiple of 32 or 4 (diagonal half-widths 7 and 33), an upper
+     bound that jumps by 5 cells and then stalls (plain and CRF), a lower
+     bound that jumps by a whole band after a dip, B=1 and B=133, the
+     widest band the slot kernel's shared memory holds at beam 8 (its stage
+     rows then live in the scratch slab) and a band past the tree kernel's
+     shared stage rows; inputs outside a kernel's bounds raise;
   9. drives the duplex paths at full width (T1 = T2 = 500, B = 256, beam 5,
      cut 0.0): ``BatchDuplexDecoder`` auto on the full range (slot kernel),
      ``engine="cuda"`` on a diagonal envelope (slot kernel), auto on the
@@ -407,6 +416,26 @@ def duplex_parity_cases():
     d12 = diag_env(12, 14, 3)
     full12 = np.stack([np.zeros(12, np.int64), np.full(12, 14, np.int64)], 1)
     base = dict(thr=0.0, K=5, collapse=True, lengths=None, N=None)
+    # window widths that are no multiple of a warp or of the chain's unroll
+    w7_1, w7_2 = make_pairs(3, 40, 44, 5, 63)
+    w33_1, w33_2 = make_pairs(2, 80, 90, 5, 64)
+    # the upper bound grows by 5 cells in one step, then stalls for three
+    j1, j2 = make_pairs(3, 24, 40, 5, 65)
+    hi_j = np.minimum(40, 6 + 5 * (np.arange(24) // 4))
+    jumps = np.stack([np.maximum(hi_j - 9, 0), hi_j], 1).astype(np.int64)
+    # the upper bound dips, then the lower bound jumps by a whole band and
+    # the window slides on: a discard of many cells at once
+    hi_e = np.array([12] * 4 + [8] * 3 + list(range(20, 37)), np.int64)
+    lo_e = np.array([0] * 7 + list(range(8, 25)), np.int64)
+    slide = np.stack([lo_e, hi_e], 1)
+    many1, many2 = make_pairs(133, T1, T2, 5, 66)  # one pair more than the card has SMs
+    # the widest band the slot kernel's shared memory holds at beam 8 (its
+    # stage rows then live in the scratch slab), and a band past it
+    wide1, wide2 = make_pairs(2, 3, 894, 5, 67)
+    wide_env = np.stack([np.zeros(3, np.int64), np.full(3, 894, np.int64)], 1)
+    past1, past2 = make_pairs(2, 3, 1100, 5, 68)
+    past_env = np.stack([np.zeros(3, np.int64), np.array([600, 1100, 1100], np.int64)], 1)
+    cj = make_crf_pairs(2, 24, 40, 16, 5, 69)
     cases = [
         ("full", "plain", (n1, n2, full), {}),
         ("diag", "plain", (n1, n2, diag), {}),
@@ -423,6 +452,15 @@ def duplex_parity_cases():
         ("crf_S16_diag", "crf", (c16, d12), {}),
         ("crf_S16_full", "crf", (c16, full12), {}),
         ("crf_S9_A3", "crf", (c9, d12), {}),
+        ("diag_halfwidth7", "plain", (w7_1, w7_2, diag_env(40, 44, 7)), {}),
+        ("diag_halfwidth33", "plain", (w33_1, w33_2, diag_env(80, 90, 33)), {}),
+        ("upper_jumps_then_stalls", "plain", (j1, j2, jumps), {}),
+        ("dip_then_lower_jump", "plain", (j1, j2, slide), {}),
+        ("one_pair", "plain", (n1[:1], n2[:1], diag), {}),
+        ("B133", "plain", (many1, many2, diag), {}),
+        ("beam8_widest_band_in_shared_memory", "plain", (wide1, wide2, wide_env), dict(K=8)),
+        ("beam8_band_past_shared_stage", "tree", (past1, past2, past_env), dict(K=8)),
+        ("crf_S16_upper_jumps", "crf", (cj, jumps), {}),
     ]
     return [(name, kind, inputs, {**base, **kw}) for name, kind, inputs, kw in cases]
 
@@ -505,12 +543,27 @@ def auto_past_slot_smem(torch, api, log_counts):
         f"engine; beam 9 raises ValueError")
 
 
-def duplex_phases(torch, dev, smi, log_counts):
-    """Phases 8-12 (duplex); returns the two duplex kernels' JSON rows."""
-    from duplex_helpers import diag_env
-    from fast_ctc_decode_tpu_torch import api, decode_many_duplex
-    from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
+def garbage_scratch(torch, duplex_cuda, duplex_exact_cuda):
+    """Make both duplex wrappers hand their kernels scratch memory full of
+    random bits (NaN patterns and wild indices included) instead of whatever
+    ``torch.empty`` finds; returns a function that undoes it."""
+    saved = duplex_cuda._new_slab, duplex_exact_cuda._new_scratch
+    gen = torch.Generator(device="cuda").manual_seed(90)
 
+    def bits(B, words, device):
+        return torch.randint(-2**31, 2**31 - 1, (B, words), generator=gen, device=device,
+                             dtype=torch.int64).to(torch.int32)
+
+    duplex_cuda._new_slab = lambda B, words, device: bits(B, words, device).view(torch.float32)
+    duplex_exact_cuda._new_scratch = bits
+
+    def restore():
+        duplex_cuda._new_slab, duplex_exact_cuda._new_scratch = saved
+    return restore
+
+
+def duplex_runners(duplex_cuda):
+    """Callers of the duplex kernels and plain engines on prepared inputs."""
     def diff(got, want):
         return max(max_abs_diff(g, w) for g, w in zip(got, want))
 
@@ -532,7 +585,24 @@ def duplex_phases(torch, dev, smi, log_counts):
                  crf=crf, **st)
         return [out[f] for f in DUP_FIELDS]
 
-    # ---- phase 8: duplex kernels vs plain, bit for bit, on the card ----
+    return diff, slot_run, slot_plain, tree_run
+
+
+def duplex_parity_phase(torch, dev):
+    """Phase 8: the duplex kernels against their plain versions, bit for bit,
+    on the card, with garbage in the kernels' scratch memory.  Returns the
+    largest difference of the slot, tree and CRF tree kernels (0 or it
+    raised)."""
+    from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
+
+    diff, slot_run, slot_plain, tree_run = duplex_runners(duplex_cuda)
+    t0 = time.perf_counter()
+    bad = duplex_cuda.math_check(dev)
+    log(f"duplex math check: exp_f32 / log1p_f32 differ from expf / log1pf on {bad[0]} / "
+        f"{bad[1]} of 2^32 float arguments ({time.perf_counter() - t0:.2f} s)")
+    if any(bad):
+        raise AssertionError("the duplex kernels' exp / log1p differ from the math library's")
+    restore = garbage_scratch(torch, duplex_cuda, duplex_exact_cuda)
     err_slot = err_tree = err_tree_crf = 0
     for name, kind, inputs, kw in duplex_parity_cases():
         K, thr, collapse, N = kw["K"], kw["thr"], kw["collapse"], kw["N"]
@@ -556,7 +626,9 @@ def duplex_phases(torch, dev, smi, log_counts):
                 needs_ext=st["needs_ext"], crf=False)
             d_slot = max(d_ids, diff([got[f] for f in DUP_FIELDS], [want[f] for f in DUP_FIELDS]))
             err_slot = max(err_slot, d_slot)
-            msg.append(f"slot {d_slot} (codes {sorted(set(got['err'].tolist()))})")
+            Wk = duplex_cuda.band_width(lo, hi)
+            msg.append(f"slot {d_slot} (codes {sorted(set(got['err'].tolist()))}, Wk {Wk}, stage "
+                       f"in {'shared memory' if duplex_cuda.stage_in_shared_memory(K, Wk) else 'the slab'})")
             if d_slot:
                 raise AssertionError(f"duplex slot kernel != plain on case {name}")
         inp = duplex_inputs(torch, dev, n1, n2, env, thr, crf=crf_in, tree=True, K=K,
@@ -564,24 +636,107 @@ def duplex_phases(torch, dev, smi, log_counts):
         got = tree_run(duplex_exact_cuda.duplex_exact_kernel_batch, inp, K, collapse, crf, N)
         want = tree_run(duplex_exact_cuda.duplex_exact_plain, inp, K, collapse, crf, N)
         d_tree = diff(got, want)
-        msg.append(f"tree{' crf' if crf else ''} {d_tree} (codes {sorted(set(got[2].tolist()))})")
+        W = inp[-1]["W"]
+        msg.append(f"tree{' crf' if crf else ''} {d_tree} (codes {sorted(set(got[2].tolist()))}, "
+                   f"W {W}, stage in "
+                   f"{'shared memory' if duplex_exact_cuda.stage_in_shared_memory(K, W) else 'the slab'})")
         if d_tree:
             raise AssertionError(f"duplex tree kernel != plain on case {name}")
         if crf:
             err_tree_crf = max(err_tree_crf, d_tree)
         else:
             err_tree = max(err_tree, d_tree)
-        if kind == "tree" and name == "lower_steps_back":
-            # outside the slot kernel's envelope class: a CUDA tensor raises
+        if kind == "tree" and name in ("lower_steps_back", "beam8_band_past_shared_stage"):
+            # outside the slot kernel's bounds: a CUDA tensor raises
             sl = duplex_inputs(torch, dev, n1, n2, env, thr, K=K)
             try:
                 slot_run(duplex_cuda.duplex_ids_kernel, sl, K, collapse)
             except ValueError:
                 msg.append("slot kernel refuses it (ValueError)")
             else:
-                raise AssertionError("the slot kernel ran outside its envelope class")
+                raise AssertionError("the slot kernel ran outside its bounds")
         torch.cuda.synchronize()
         log(f"parity duplex {name}: max_abs_err " + ", ".join(msg))
+    restore()
+    return err_slot, err_tree, err_tree_crf
+
+
+def duplex_launch_shapes(build_log):
+    """Log what ptxas reports for the two duplex kernels, and how their blocks
+    fill an SM at the full-width shapes."""
+    from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
+
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "duplex" in line:
+            log("ptxas duplex: " + " | ".join(x.strip() for x in lines[i:i + 4]))
+    A = len(ALPHABET) - 1
+    for what, Wk in (("full range", T_DUP + 2), (f"diag{W_DIAG}", 2 * W_DIAG + 3)):
+        sh = duplex_cuda.launch_shape(BEAM, Wk)
+        log(f"duplex_slot_kernel {what} (beam {BEAM}, Wk {Wk}): block {sh['block']} threads, "
+            f"{sh['smem']} bytes of dynamic shared memory, {sh['blocks_per_sm']} blocks per SM, "
+            f"slab {4 * duplex_cuda.slab_words(BEAM, A, Wk)} bytes per pair")
+    for crf in (False, True):
+        sh = duplex_exact_cuda.launch_shape(BEAM, 2 * W_DIAG + 3, crf=crf)
+        log(f"duplex_exact_kernel{' CRF' if crf else ''} diag{W_DIAG} (beam {BEAM}): block "
+            f"{sh['block']} threads, {sh['smem']} bytes of dynamic shared memory, "
+            f"{sh['blocks_per_sm']} blocks per SM")
+
+
+def duplex_kernel_times(torch, dev, smi, dn1, dn2, c1, i1, c2, i2, diag):
+    """Phase 12's kernel part: each duplex kernel timed beside its plain
+    version on the same full-width shape and held to it there; returns
+    ({name: (kernel_ms, plain_ms)}, {name: bound})."""
+    from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
+
+    diff, slot_run, slot_plain, tree_run = duplex_runners(duplex_cuda)
+    full_env = np.stack([np.zeros(T_DUP, np.int64), np.full(T_DUP, T_DUP, np.int64)], 1)
+    shape = f"B={B_DUP} T1=T2={T_DUP}"
+    rows = {}
+    bounds = {}
+    for name, env in (("slot full", full_env), (f"slot diag{W_DIAG}", diag)):
+        inp = duplex_inputs(torch, dev, dn1, dn2, env, DUP_THR)
+        bounds[name] = duplex_bound(inp, BEAM, len(ALPHABET) - 1, tree=False)
+        k_ms = median_event_ms(lambda: slot_run(duplex_cuda.duplex_ids_kernel, inp, BEAM, True),
+                               torch)
+        got = slot_run(duplex_cuda.duplex_ids_kernel, inp, BEAM, True)
+        p_ms, want = once_event_ms(lambda: slot_plain(inp, BEAM, True), torch)
+        d = diff(got, want)
+        log(f"time duplex {name} {shape}: kernel {k_ms!r} ms, plain {p_ms!r} ms; full-width "
+            f"max_abs_err {d} [{smi}]")
+        if d:
+            raise AssertionError(f"duplex slot kernel != plain at full width ({name})")
+        rows[name] = (k_ms, p_ms)
+    for name, crf in (("tree", False), ("tree crf", True)):
+        if crf:
+            inp = duplex_inputs(torch, dev, c1, c2, diag, DUP_THR, crf=(i1, i2), tree=True)
+        else:
+            inp = duplex_inputs(torch, dev, dn1, dn2, diag, DUP_THR, tree=True)
+            bounds[name] = duplex_bound(inp, BEAM, len(ALPHABET) - 1, tree=True)
+        k_ms = median_event_ms(
+            lambda: tree_run(duplex_exact_cuda.duplex_exact_kernel_batch, inp, BEAM, not crf, crf),
+            torch)
+        got = tree_run(duplex_exact_cuda.duplex_exact_kernel_batch, inp, BEAM, not crf, crf)
+        p_ms, want = once_event_ms(
+            lambda: tree_run(duplex_exact_cuda.duplex_exact_plain, inp, BEAM, not crf, crf), torch)
+        d = diff(got, want)
+        log(f"time duplex {name} diag{W_DIAG} {shape}{' S=16' if crf else ''}: kernel "
+            f"{k_ms!r} ms, plain {p_ms!r} ms; full-width max_abs_err {d} [{smi}]")
+        if d:
+            raise AssertionError(f"duplex {name} kernel != plain at full width")
+        rows[name] = (k_ms, p_ms)
+        del inp, got, want
+        torch.cuda.empty_cache()
+    return rows, bounds
+
+
+def duplex_phases(torch, dev, smi, log_counts):
+    """Phases 8-12 (duplex); returns the two duplex kernels' JSON rows."""
+    from duplex_helpers import diag_env
+    from fast_ctc_decode_tpu_torch import api, decode_many_duplex
+
+    # ---- phase 8: duplex kernels vs plain, bit for bit, on the card ----
+    err_slot, err_tree, err_tree_crf = duplex_parity_phase(torch, dev)
 
     # ---- phase 9: the duplex paths at full width ----
     dn1, dn2 = make_pairs(B_DUP, T_DUP, T_DUP, len(ALPHABET), 70)
@@ -684,43 +839,8 @@ def duplex_phases(torch, dev, smi, log_counts):
         "class raises ValueError")
 
     # ---- phase 12: times at full width; kernels held to plain there too ----
-    full_env = np.stack([np.zeros(T_DUP, np.int64), np.full(T_DUP, T_DUP, np.int64)], 1)
+    rows, bounds = duplex_kernel_times(torch, dev, smi, dn1, dn2, c1, i1, c2, i2, diag)
     shape = f"B={B_DUP} T1=T2={T_DUP}"
-    rows = {}
-    bounds = {}
-    for name, env in (("slot full", full_env), (f"slot diag{W_DIAG}", diag)):
-        inp = duplex_inputs(torch, dev, dn1, dn2, env, DUP_THR)
-        bounds[name] = duplex_bound(inp, BEAM, len(ALPHABET) - 1, tree=False)
-        k_ms = median_event_ms(lambda: slot_run(duplex_cuda.duplex_ids_kernel, inp, BEAM, True),
-                               torch)
-        got = slot_run(duplex_cuda.duplex_ids_kernel, inp, BEAM, True)
-        p_ms, want = once_event_ms(lambda: slot_plain(inp, BEAM, True), torch)
-        d = diff(got, want)
-        log(f"time duplex {name} {shape}: kernel {k_ms!r} ms, plain {p_ms!r} ms; full-width "
-            f"max_abs_err {d} [{smi}]")
-        if d:
-            raise AssertionError(f"duplex slot kernel != plain at full width ({name})")
-        rows[name] = (k_ms, p_ms)
-    for name, crf in (("tree", False), ("tree crf", True)):
-        if crf:
-            inp = duplex_inputs(torch, dev, c1, c2, diag, DUP_THR, crf=(i1, i2), tree=True)
-        else:
-            inp = duplex_inputs(torch, dev, dn1, dn2, diag, DUP_THR, tree=True)
-            bounds[name] = duplex_bound(inp, BEAM, len(ALPHABET) - 1, tree=True)
-        k_ms = median_event_ms(
-            lambda: tree_run(duplex_exact_cuda.duplex_exact_kernel_batch, inp, BEAM, not crf, crf),
-            torch)
-        got = tree_run(duplex_exact_cuda.duplex_exact_kernel_batch, inp, BEAM, not crf, crf)
-        p_ms, want = once_event_ms(
-            lambda: tree_run(duplex_exact_cuda.duplex_exact_plain, inp, BEAM, not crf, crf), torch)
-        d = diff(got, want)
-        log(f"time duplex {name} diag{W_DIAG} {shape}{' S=16' if crf else ''}: kernel "
-            f"{k_ms!r} ms, plain {p_ms!r} ms; full-width max_abs_err {d} [{smi}]")
-        if d:
-            raise AssertionError(f"duplex {name} kernel != plain at full width")
-        rows[name] = (k_ms, p_ms)
-        del inp, got, want
-        torch.cuda.empty_cache()
     dec_ms = {
         "auto full range decode_arrays": median_ms(lambda: dec.decode_arrays(dn1, dn2), torch, 3),
         "auto full range decode": median_ms(lambda: dec.decode(dn1, dn2), torch, 3),
@@ -1010,6 +1130,7 @@ def main():
     for line in build.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"ptxas: {line.strip()}")
+    duplex_launch_shapes(build.log)
 
     # ---- phase 2: kernel vs plain, bit for bit, on the card ----
     # every version of the beam kernel (1, 2 = the default, 3) against the

@@ -142,7 +142,8 @@ def load_library():
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: argtypes of every launch function (all return an int cudaError_t)
+#: argtypes of every C function of the library (all return an int: the launch
+#: functions a cudaError_t)
 SIGNATURES = {
     "ctc_beam_ids_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ctc_beam_ids_v1_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -155,8 +156,13 @@ SIGNATURES = {
         _P, ctypes.c_longlong, _P, _P, _P, _P, _P,
     ],
     "ctc_duplex_slot_launch": [
-        _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, ctypes.c_longlong, _P, _P, _P, _P,
     ],
+    "ctc_duplex_math_check_launch": [_P, _P],
+    "ctc_duplex_block_threads": [],
+    "ctc_duplex_slot_blocks_per_sm": [_I, _I],
+    "ctc_duplex_exact_blocks_per_sm": [_I, _I, _I],
     "ctc_duplex_exact_launch": [
         _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _P, ctypes.c_longlong, _P, _P, _P, _P,

@@ -4,7 +4,7 @@
 ctypes on PyTorch's current stream, replaces
 ``fast_ctc_decode_tpu/ops/duplex_pallas.py::_duplex_kernel`` (behind
 ``duplex_pallas_batch``): the slot-band decode over the whole network_1
-loop, one warp per read pair.  Plain version:
+loop, one block of four warps per read pair.  Plain version:
 ``duplex_fast.duplex_fast_ids`` (crf=False).  The id log it writes is coded
 as the 1D beam's, so the 1D beam's traceback kernel
 (``beam_cuda.traceback_kernel``) turns it into labels.
@@ -18,6 +18,14 @@ Bounds, from the kernel's own arithmetic:
   - every pair's lower bounds are non-decreasing (the full range included):
     the envelope class of the TPU kernel, where a band row can be a ring
     over network_2 cells.
+
+Every fresh candidate's band is built once, into a scratch slab in device
+memory (``slab_words`` f32 words per pair, allocated here with
+``torch.empty`` and never initialised; an allocation that fails raises), and
+the chosen candidates' rows are copied from it.  The rows of hoisted bases
+("stage" rows) sit beside the bands in shared memory when ``10 * K * Wk``
+floats fit (``stage_in_shared_memory``) and in the slab otherwise; that
+choice changes no bound.
 
 The wrapper checks its inputs and these bounds and raises beyond them,
 whatever the device.  A tensor on the CPU then goes to the plain version; a
@@ -58,6 +66,53 @@ def fits_shared_memory(K: int, Wk: int) -> bool:
     return 8 * K * Wk * 4 <= SMEM_LIMIT
 
 
+def stage_in_shared_memory(K: int, Wk: int) -> bool:
+    """True when the stage rows, 2 more rings of Wk floats per slot, fit
+    beside the bands; otherwise the kernel keeps them in the slab."""
+    return 10 * K * Wk * 4 <= SMEM_LIMIT
+
+
+def slab_words(K: int, A: int, Wk: int) -> int:
+    """f32 words of one pair's scratch slab: the fresh candidates' cells
+    [Wk][2][K*A] and room for the stage rows [2][K][Wk]."""
+    return 2 * K * A * Wk + 2 * K * Wk
+
+
+def _new_slab(B: int, words: int, device) -> torch.Tensor:
+    """The uninitialised scratch slab of a launch, [B, words] f32."""
+    return torch.empty((B, words), dtype=torch.float32, device=device)
+
+
+def launch_shape(K: int, Wk: int) -> dict:
+    """How the kernel launches at (K, Wk) on the current card: threads of a
+    block, its dynamic shared memory in bytes, and blocks per SM by the CUDA
+    runtime's occupancy calculation (needs the built library and a card)."""
+    lib = _build.load_library()
+    blocks = lib.ctc_duplex_slot_blocks_per_sm(K, Wk)
+    if blocks < 0:
+        _raise_for(-blocks, "duplex slot kernel occupancy")
+    smem = (10 if stage_in_shared_memory(K, Wk) else 8) * K * Wk * 4
+    return {"block": lib.ctc_duplex_block_threads(), "smem": smem, "blocks_per_sm": blocks}
+
+
+def math_check(device) -> tuple:
+    """Run ``csrc/duplex_math_check.cu`` on a CUDA device: how many of the 2^32
+    float arguments give a result of the kernels' straight-line ``exp_f32`` /
+    ``log1p_f32`` that differs from the CUDA math library's ``expf`` /
+    ``log1pf`` (which PyTorch's ``exp`` / ``log1p`` call).  (0, 0) is the
+    condition of the kernels' bit parity with the plain engines."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the math check compares device functions: it needs a CUDA device")
+    with torch.cuda.device(dev):
+        out = torch.zeros((2,), dtype=torch.int64, device=dev)
+        rc = _build.load_library().ctc_duplex_math_check_launch(
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _raise_for(rc, "duplex math check")
+        bad_exp, bad_log1p = out.tolist()
+    return bad_exp, bad_log1p
+
+
 def in_envelope_class(lo: torch.Tensor) -> bool:
     """True when every pair's lower bounds are non-decreasing."""
     return lo.shape[1] < 2 or bool((lo[:, 1:] >= lo[:, :-1]).all())
@@ -92,13 +147,15 @@ def _launch(l1, l2, root_gap, lo, hi, thr, lengths, *, K, Wk, collapse, needs_ex
     err = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return ids_log, fin, err
+    words = slab_words(K, A1 - 1, Wk)
+    slab = _new_slab(B, words, dev)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
     rc = lib.ctc_duplex_slot_launch(
         l1.data_ptr(), l2.data_ptr(), root_gap.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         lengths.data_ptr(), float(thr), B, T1, l2.shape[1], A1 - 1, K, root_gap.shape[1],
-        Wk, int(bool(needs_ext)), int(bool(collapse)), ids_log.data_ptr(), fin.data_ptr(),
-        err.data_ptr(), stream,
+        Wk, int(bool(needs_ext)), int(bool(collapse)), slab.data_ptr(), words,
+        ids_log.data_ptr(), fin.data_ptr(), err.data_ptr(), stream,
     )
     _raise_for(rc, "duplex slot kernel")
     launches["duplex"] += 1

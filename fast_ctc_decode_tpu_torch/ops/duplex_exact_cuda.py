@@ -8,11 +8,15 @@ through ctypes on PyTorch's current stream, replaces
 ``duplex.duplex_exact_batch``; both return its dict (labels_rev [B, T1],
 count, err; int32), bit for bit.
 
-Each pair's tree and node bands live in a scratch buffer of
-``5*N + (N+1)*A + 2*N*W`` int32 words (``scratch_stride``), N = ``max_nodes``
-(by default ``duplex._duplex_max_nodes``, the JAX package's budget), which the
-kernel never initialises.  A pair that needs more than N nodes stops with
-NODE_OVERFLOW, exactly where the plain engine does.
+Each pair's tree, node bands and stage rows live in a scratch buffer of
+``6*N + (N+1)*A + 2*N*W + 2*K*W`` int32 words (``scratch_stride``), N =
+``max_nodes`` (by default ``duplex._duplex_max_nodes``, the JAX package's
+budget), which the kernel never initialises.  The stage rows (hoisted
+bases of the band chains, ``2*K*W`` floats) live in shared memory when they
+fit ``STAGE_SMEM_LIMIT`` bytes (``stage_in_shared_memory``) and in the
+buffer otherwise; the kernel takes every width either way.  A pair that
+needs more than N nodes stops with NODE_OVERFLOW, exactly where the plain
+engine does.
 
 Bounds, from the kernel's own arithmetic: ``beam_size * A <= 32`` (one lane
 per candidate), ``max_nodes < 2**31`` (int32 node ids), ``max(S, Si) * A``
@@ -37,6 +41,7 @@ from .duplex_cuda import MAX_LANES
 launches = {"duplex_exact": 0, "duplex_exact_crf": 0}
 
 _I64_MAX = 2**63 - 1
+STAGE_SMEM_LIMIT = 64 * 1024  # bytes of stage rows a block keeps in shared memory
 
 duplex_exact_plain = duplex_ops.duplex_exact_batch
 
@@ -46,10 +51,34 @@ def reset_launches():
         launches[name] = 0
 
 
-def scratch_stride(N: int, A: int, W: int) -> int:
-    """int32 words of one pair's slab: parent, label, boff, blen, bmax [N],
-    child [(N+1)*A] and the bands blab, bgap [N*W]."""
-    return 5 * N + (N + 1) * A + 2 * N * W
+def scratch_stride(N: int, K: int, A: int, W: int) -> int:
+    """int32 words of one pair's slab: parent, label, boff, blen, borg, bmax
+    [N], child [(N+1)*A], the bands blab, bgap [N*W] and the stage rows
+    [2*K*W]."""
+    return 6 * N + (N + 1) * A + 2 * N * W + 2 * K * W
+
+
+def stage_in_shared_memory(K: int, W: int) -> bool:
+    """True when the stage rows (2*K*W floats) fit the shared memory the
+    kernel gives them; otherwise it keeps them in the scratch buffer."""
+    return 2 * K * W * 4 <= STAGE_SMEM_LIMIT
+
+
+def _new_scratch(B: int, stride: int, device) -> torch.Tensor:
+    """The uninitialised scratch buffer of a launch, [B, stride] int32."""
+    return torch.empty((B, stride), dtype=torch.int32, device=device)
+
+
+def launch_shape(K: int, W: int, *, crf: bool) -> dict:
+    """How the kernel launches at (K, W) on the current card: threads of a
+    block, its dynamic shared memory in bytes, and blocks per SM by the CUDA
+    runtime's occupancy calculation (needs the built library and a card)."""
+    lib = _build.load_library()
+    blocks = lib.ctc_duplex_exact_blocks_per_sm(K, W, int(bool(crf)))
+    if blocks < 0:
+        _raise_for(-blocks, "exact duplex kernel occupancy")
+    smem = 2 * K * W * 4 if stage_in_shared_memory(K, W) else 0
+    return {"block": lib.ctc_duplex_block_threads(), "smem": smem, "blocks_per_sm": blocks}
 
 
 def _bounds(B, K, A, N, W, S, crf):
@@ -60,7 +89,7 @@ def _bounds(B, K, A, N, W, S, crf):
         )
     if not 1 <= N < duplex_fast._I32_MAX:
         raise ValueError(f"max_nodes must be in [1, 2**31 - 1), got {N}")
-    if B * scratch_stride(N, A, W) > _I64_MAX:
+    if B * scratch_stride(N, K, A, W) > _I64_MAX:
         raise ValueError("B * max_nodes * W overflows the int64 scratch offsets")
     if crf and S * A + A > duplex_fast._I32_MAX:
         raise ValueError("S * A overflows the int32 transition states")
@@ -106,14 +135,14 @@ def _launch(l1, l2, root_gap, lo, hi, thr, init_states, lengths, *, K, N, W, col
     T2, A = l2.shape[1], l1.shape[-1] - 1
     S = l1.shape[2] if crf else 1
     dev = l1.device
-    stride = scratch_stride(N, A, W)
+    stride = scratch_stride(N, K, A, W)
     labels_rev = torch.empty((B, T1), dtype=torch.int32, device=dev)
     count = torch.empty((B,), dtype=torch.int32, device=dev)
     err = torch.empty((B,), dtype=torch.int32, device=dev)
     out = {"labels_rev": labels_rev, "count": count, "err": err}
     if B == 0:
         return out
-    scratch = torch.empty((B, stride), dtype=torch.int32, device=dev)
+    scratch = _new_scratch(B, stride, dev)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
     rc = lib.ctc_duplex_exact_launch(

@@ -657,7 +657,7 @@ def run_duplex_engine(engine, batch: DuplexBatch, device, *, beam_size, collapse
     N = batch.max_nodes(K) if max_nodes is None else int(max_nodes)
     A = batch.l1.shape[-1] - 1
     B = batch.lo.shape[0]
-    per_pair = 4 * duplex_exact_cuda.scratch_stride(N, A, batch.W)
+    per_pair = 4 * duplex_exact_cuda.scratch_stride(N, K, A, batch.W)
     chunk = max(int(EXACT_CHUNK_BYTES // per_pair), 1)
     fn = (
         duplex_exact_cuda.duplex_exact_kernel_batch

@@ -243,3 +243,21 @@ def test_decode_many_duplex_resumes_a_jax_checkpoint(tmp_path):
     assert got == want
     assert decode_many_duplex(pairs, ALPHA, device="cpu", **kw) == want  # uninterrupted, in the port
     assert all(e == errors.OK for _, e in got)
+
+
+@pytest.mark.parametrize("beam,t2_fits", [(8, 894), (5, 1431), (1, 7166)])
+def test_auto_sends_a_constant_window_past_the_slot_kernels_band_bound_to_the_tree(beam, t2_fits):
+    """The slot kernel's band bound (8 * K * (T2 + 2) * 4 <= 224 KiB on the
+    full range) decides auto's route on a CUDA device to the cell: the widest
+    band that fits goes to the slot kernel, one cell more to the tree kernel,
+    on the CPU both to the plain slot engine, and a moving window to the tree
+    engine whatever its width."""
+    for T2n, want in ((t2_fits, "cuda"), (t2_fits + 1, "exact")):
+        lo = np.zeros((2, 3), np.int32)
+        hi = np.full((2, 3), T2n, np.int32)
+        assert duplex_cuda.fits_shared_memory(beam, T2n + 2) == (want == "cuda")
+        assert port_pipeline.auto_duplex_engine(lo, hi, "cuda", beam) == want
+        assert port_pipeline.auto_duplex_engine(lo, hi, "cpu", beam) == "fast"
+        assert port_pipeline.auto_duplex_engine(lo, hi, "cuda", beam, crf=True) == "fast"
+        hi[:, 0] = T2n - 1  # the window moves
+        assert port_pipeline.auto_duplex_engine(lo, hi, "cuda", beam) == "exact"

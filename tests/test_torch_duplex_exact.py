@@ -16,6 +16,9 @@ sequences.  The wrapper of the CUDA tree kernel (``ops/duplex_exact_cuda.py``)
 runs the plain engine on CPU tensors and refuses inputs beyond its bounds.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -211,4 +214,123 @@ def test_kernel_wrapper_runs_plain_on_cpu_and_checks_bounds():
         duplex_exact_cuda.duplex_exact_kernel_batch(*targs, lengths, beam_size=9, max_nodes=64, **kw)
     with pytest.raises(ValueError, match="max_nodes"):
         duplex_exact_cuda.duplex_exact_kernel_batch(*targs, lengths, beam_size=5, max_nodes=2**31, **kw)
-    assert duplex_exact_cuda.scratch_stride(10, 4, 7) == 5 * 10 + 11 * 4 + 2 * 10 * 7
+    assert duplex_exact_cuda.scratch_stride(10, 5, 4, 7) == 6 * 10 + 11 * 4 + 2 * 10 * 7 + 2 * 5 * 7
+
+
+# ---- the tree kernel's scratch and stage arithmetic, and the hoisted bases ----
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "fast_ctc_decode_tpu_torch", "csrc")
+
+
+def test_tree_kernel_constants_equal_the_source():
+    src = open(os.path.join(CSRC, "duplex_exact_kernel.cu")).read()
+    limit = eval(re.search(r"kStageSmemLimit = ([\d* ]+);", src).group(1))
+    assert limit == duplex_exact_cuda.STAGE_SMEM_LIMIT
+    stride = re.search(r"ctc_duplex_exact_stride\([^)]*\)\s*\{\s*return (.*?);", src, re.S).group(1)
+    stride = re.sub(r"\(long long\)", "", re.sub(r"(\d+)LL", r"\1", stride))
+    for N, K, A, W in ((10, 5, 4, 7), (20008, 5, 4, 83), (1, 1, 1, 1), (64, 8, 4, 1102)):
+        assert eval(stride, dict(N=N, K=K, A=A, W=W)) == \
+            duplex_exact_cuda.scratch_stride(N, K, A, W)
+    assert "2LL * K * W * (long long)sizeof(float)" in src and "bytes <= kStageSmemLimit" in src
+
+
+@pytest.mark.parametrize("K,fits", [(8, 1024), (5, 1638), (1, 8192), (32, 256)])
+def test_tree_kernel_stage_rows_just_fit_and_just_miss(K, fits):
+    assert 2 * K * fits * 4 <= 64 * 1024 < 2 * K * (fits + 1) * 4
+    assert duplex_exact_cuda.stage_in_shared_memory(K, fits)
+    assert not duplex_exact_cuda.stage_in_shared_memory(K, fits + 1)
+    # either way the width is taken: past the limit the rows live in the
+    # scratch buffer, whose stride has room for them
+    for W in (fits, fits + 1):
+        duplex_exact_cuda._bounds(4, K, 1, 100, W, 1, False)
+        assert duplex_exact_cuda.scratch_stride(100, K, 1, W) - \
+            duplex_exact_cuda.scratch_stride(100, 0, 1, W) == 2 * K * W
+
+
+def test_tree_kernel_wrapper_takes_a_band_past_the_shared_stage_rows_on_cpu():
+    # beam 8 at W > 1024: the case the kernel stages in its scratch buffer
+    rng = np.random.RandomState(31)
+    n1 = rng.rand(1, 3, 5).astype(np.float32)
+    n2 = rng.rand(1, 1100, 5).astype(np.float32)
+    n1 /= n1.sum(-1, keepdims=True)
+    n2 /= n2.sum(-1, keepdims=True)
+    env = np.stack([np.zeros(3, np.int64), np.array([600, 1100, 1100], np.int64)], 1)
+    args, static, _, _ = prepared(n1, n2, env, 0.0, K=8)
+    assert not duplex_exact_cuda.stage_in_shared_memory(8, static["W"])
+    T = torch.from_numpy
+    targs = [T(x) if isinstance(x, np.ndarray) else x for x in args]
+    lengths = torch.full((1,), 3, dtype=torch.int32)
+    got = duplex_exact_cuda.duplex_exact_kernel_batch(
+        *targs, lengths, beam_size=8, collapse_repeats=True, crf=False, **static)
+    assert got["err"].tolist() == [errors.OK] and int(got["count"][0]) >= 1
+
+
+def special_bands(seed, shape):
+    """Band values with -inf, NaN and -0.0 cells among ordinary log probs."""
+    rng = np.random.RandomState(seed)
+    x = np.log(rng.rand(*shape).astype(np.float32))
+    kind = rng.rand(*shape)
+    x[kind < 0.15] = -np.inf
+    x[(kind >= 0.15) & (kind < 0.2)] = np.nan
+    x[(kind >= 0.2) & (kind < 0.25)] = -0.0
+    return x
+
+
+def bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("crf", [False, True])
+def test_tree_bands_equal_a_chain_that_computes_its_base_per_cell(crf):
+    # duplex._build_bands (the tip's total for the whole window at once)
+    # against a cell-by-cell chain with the base inside the loop, to the bit
+    Bn, K, A, N, W, T2n, S = 2, 3, 4, 6, 9, 20, 4
+    dev = torch.device("cpu")
+    c = port_dx._init_carry(Bn, K, N, A, W, torch.zeros(Bn, dtype=torch.int32), dev)
+    c = c._replace(
+        node=torch.tensor([[-1, 2, 4], [1, 5, -2]], dtype=torch.int32),
+        state=torch.tensor([[0, 3, 1], [2, 0, 0]]),
+        blab=torch.from_numpy(special_bands(7, (Bn, N + 1, W))),
+        bgap=torch.from_numpy(special_bands(8, (Bn, N + 1, W))),
+        boff=torch.tensor([[0, 3, 2, 0, 4, 1, 0], [1, 3, 0, 0, 2, 5, 0]]),
+        blen=torch.tensor([[0, 5, 9, 0, 7, 3, 0], [2, 8, 0, 0, 1, 6, 0]]),
+    )
+    lo, hi, wc = torch.tensor([4, 5]), torch.tensor([13, 11]), 9
+    shape = (Bn, T2n, S, A + 1) if crf else (Bn, T2n, A + 1)
+    l2 = torch.from_numpy(special_bands(9, shape))
+    root_gap = torch.from_numpy(special_bands(10, (Bn, 8)))
+    rep = torch.from_numpy(np.random.RandomState(11).rand(Bn, K, A) < 0.3)
+    is_rep = torch.zeros_like(rep) if crf else rep
+    lab, gap, mx_all = port_dx._build_bands(c, l2, root_gap, lo, hi, wc, is_rep, crf)
+    NEG = torch.tensor(float("-inf"))
+    for b in range(Bn):
+        for k in range(K):
+            node = int(c.node[b, k])
+            for a in range(A):
+                last_lab = last_tot = mx = NEG
+                for i in range(wc):
+                    t2 = int(lo[b]) + i
+                    pv = t2 - 1
+                    if node < 0:
+                        par_lab = NEG
+                        par_gap = root_gap[b, pv + 1] if 0 <= pv + 1 < 8 else NEG
+                    else:
+                        n0 = min(max(node, 0), N - 1)
+                        idx = pv - int(c.boff[b, n0])
+                        ok = 0 <= idx < int(c.blen[b, n0])
+                        col = min(max(idx, 0), W - 1)
+                        par_lab = c.blab[b, n0, col] if ok else NEG
+                        par_gap = c.bgap[b, n0, col] if ok else NEG
+                    base = par_gap if bool(is_rep[b, k, a]) else port_df.ls_add(par_lab, par_gap)
+                    tt = min(t2, T2n - 1)
+                    r = l2[b, tt, int(c.state[b, k])] if crf else l2[b, tt]
+                    gap_n = last_tot + r[0]
+                    lab_n = r[1 + a] + port_df.ls_add(last_lab, base)
+                    tot = port_df.ls_add(lab_n, gap_n)
+                    assert torch.equal(bits(lab[b, k, a, i]), bits(lab_n)), (b, k, a, i)
+                    assert torch.equal(bits(gap[b, k, a, i]), bits(gap_n)), (b, k, a, i)
+                    if i < int(hi[b] - lo[b]) and bool(mx < tot):
+                        mx = tot
+                    last_lab, last_tot = lab_n, tot
+                assert torch.equal(bits(mx_all[b, k, a]), bits(mx)), (b, k, a)

@@ -15,6 +15,9 @@ engine on CPU tensors, refuses inputs outside its bounds, and the 1D
 beam's traceback walks its id log at the widths it admits.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -279,3 +282,146 @@ def test_traceback_walks_the_duplex_id_log_at_its_widths():
         want = beam_cuda.traceback_plain(fin, ids, T=T1, K=K, A=A1 - 1)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
         assert int(got[2].min()) > 0
+
+
+# ---- the slot kernel's bound arithmetic and the hoisted bases ----
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "fast_ctc_decode_tpu_torch", "csrc")
+
+
+def c_return(source, function):
+    """The expression a one-statement C function of ``source`` returns, as a
+    Python expression (integer suffixes and casts dropped)."""
+    body = re.search(function + r"\([^)]*\)\s*\{\s*return (.*?);", source, re.S).group(1)
+    body = re.sub(r"\(long long\)\s*sizeof\(float\)", "4", body)
+    return re.sub(r"(\d+)LL", r"\1", body)
+
+
+def test_slot_kernel_constants_equal_the_source():
+    src = open(os.path.join(CSRC, "duplex_kernel.cu")).read()
+    assert eval(re.search(r"kSmemLimit = ([\d* ]+);", src).group(1)) == duplex_cuda.SMEM_LIMIT
+    assert int(re.search(r"kLanes = (\d+);", src).group(1)) == duplex_cuda.MAX_LANES
+    for K, A, Wk in ((5, 4, 502), (8, 4, 896), (1, 1, 2), (3, 7, 77)):
+        env = dict(K=K, A=A, Wk=Wk)
+        band_bytes = eval(c_return(src, "ctc_duplex_slot_smem_bytes"), env)
+        assert duplex_cuda.fits_shared_memory(K, Wk) == (band_bytes <= duplex_cuda.SMEM_LIMIT)
+        assert band_bytes == 8 * K * Wk * 4
+        assert eval(c_return(src, "ctc_duplex_slot_slab_words"), env) == \
+            duplex_cuda.slab_words(K, A, Wk)
+    # the stage rows' test in the launch is the wrapper's
+    assert "10LL * K * Wk * (long long)sizeof(float)" in src and "with_stage <= kSmemLimit" in src
+
+
+@pytest.mark.parametrize("K,fits", [(8, 896), (5, 1433), (1, 7168), (32, 224)])
+def test_slot_kernel_band_bound_just_fits_and_just_misses(K, fits):
+    # the band bound the kernel always had, 8 * K * Wk * 4 <= 224 KiB, to the cell
+    assert 8 * K * fits * 4 <= 224 * 1024 < 8 * K * (fits + 1) * 4
+    assert duplex_cuda.fits_shared_memory(K, fits)
+    assert not duplex_cuda.fits_shared_memory(K, fits + 1)
+    # the stage rows never tighten it: they move to the slab instead
+    assert not duplex_cuda.stage_in_shared_memory(K, fits)
+    assert duplex_cuda.stage_in_shared_memory(K, fits * 8 // 10)
+    assert not duplex_cuda.stage_in_shared_memory(K, fits * 8 // 10 + 1)
+    # check_bounds takes a band of exactly that width and refuses one more cell
+    lo = torch.zeros((1, 2), dtype=torch.int32)
+    for Wk, ok in ((fits, True), (fits + 1, False)):
+        hi = torch.full((1, 2), Wk - 2, dtype=torch.int32)
+        if ok:
+            assert duplex_cuda.check_bounds(lo, hi, K=K, A=1) == Wk
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                duplex_cuda.check_bounds(lo, hi, K=K, A=1)
+
+
+def test_slot_kernel_wrapper_runs_the_widest_band_on_cpu():
+    # beam 8 over 4 labels at Wk = 896: the widest band of the widest beam
+    n1, n2 = pairs(12, b=1, t1=2, t2=894)
+    eps, l1, l2, lt, rg, lo, hi, init = prepared(n1, n2, full_env(2, 894), 0.0)
+    T = torch.from_numpy
+    ids, fin, err = duplex_cuda.duplex_ids_kernel(
+        T(l1), T(l2), T(rg), T(lo), T(hi), lt, torch.full((1,), 2, dtype=torch.int32),
+        beam_size=8, collapse_repeats=True, needs_ext=False)
+    assert ids.shape == (2, 8, 1) and err.tolist() == [errors.OK]
+
+
+def special_bands(seed, shape):
+    """Band values with -inf, NaN and -0.0 cells among ordinary log probs."""
+    rng = np.random.RandomState(seed)
+    x = np.log(rng.rand(*shape).astype(np.float32))
+    kind = rng.rand(*shape)
+    x[kind < 0.15] = -np.inf
+    x[(kind >= 0.15) & (kind < 0.2)] = np.nan
+    x[(kind >= 0.2) & (kind < 0.25)] = -0.0
+    return x
+
+
+def bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def test_hoisted_totals_equal_the_totals_computed_cell_by_cell():
+    # the kernels compute ls_add(par_lab, par_gap) for a tip's whole window
+    # ahead of the chains; the value must be the one a chain would compute
+    # inside its own loop, cell by cell, to the bit
+    lab = torch.from_numpy(special_bands(1, (3, 5, 37)))
+    gap = torch.from_numpy(special_bands(2, (3, 5, 37)))
+    at_once = port_df.ls_add(lab, gap)
+    for i in range(lab.shape[-1]):
+        one = port_df.ls_add(lab[..., i].clone(), gap[..., i].clone())
+        assert torch.equal(bits(at_once[..., i]), bits(one)), i
+    # operand order does not matter to the value (the chain passes (lab, gap))
+    assert torch.equal(bits(at_once), bits(port_df.ls_add(gap, lab)))
+
+
+@pytest.mark.parametrize("collapse", [True, False])
+def test_fresh_bands_equal_a_chain_that_computes_its_base_per_cell(collapse):
+    # duplex_fast._build_fresh_bands against a cell-by-cell chain written as
+    # the reference writes it (duplex.rs:229-247): base inside the loop
+    Bn, K, A, T2n, wc = 2, 3, 4, 20, 9
+    dev = torch.device("cpu")
+    c = port_df._init_carry(Bn, K, T2n + 1, torch.zeros(Bn, dtype=torch.int32), dev)
+    c = c._replace(
+        id=torch.tensor([[-1, 4, 9], [3, 7, -2]], dtype=torch.int32),
+        blab=torch.from_numpy(special_bands(3, (Bn, K, T2n + 1))),
+        bgap=torch.from_numpy(special_bands(4, (Bn, K, T2n + 1))),
+        boff=torch.tensor([[0, 2, 5], [1, 6, 0]]), bend=torch.tensor([[0, 12, 9], [14, 13, 0]]),
+        lastlab=torch.tensor([[-1, 2, 0], [3, 1, 0]]),
+    )
+    lo, hi = torch.tensor([4, 5]), torch.tensor([13, 11])
+    l2 = torch.from_numpy(special_bands(5, (Bn, T2n, A + 1)))
+    root_gap = torch.from_numpy(special_bands(6, (Bn, 8)))
+    lbl = torch.arange(A)
+    is_rep = (c.lastlab[..., None] == lbl) if collapse else torch.zeros((Bn, K, A), dtype=torch.bool)
+    j = torch.arange(wc)
+    rows = port_df._l2_rows(l2, (lo[:, None] + j)[:, None, :], None, False)
+    lab, gap, p2m = port_df._build_fresh_bands(c, lo, hi, wc, rows, root_gap, is_rep)
+    NEG = float("-inf")
+    for b in range(Bn):
+        for k in range(K):
+            for a in range(A):
+                last_lab = last_tot = torch.tensor(NEG)
+                mx = torch.tensor(NEG)
+                for i in range(wc):
+                    t2 = int(lo[b]) + i
+                    pv = t2 - 1
+                    root = int(c.id[b, k]) == -1
+                    t_ok = int(c.boff[b, k]) <= pv < int(c.bend[b, k])
+                    par_lab = c.blab[b, k, pv] if (t_ok and not root) else torch.tensor(NEG)
+                    if root:
+                        par_gap = root_gap[b, pv + 1] if 0 <= pv + 1 < 8 else torch.tensor(NEG)
+                    else:
+                        par_gap = c.bgap[b, k, pv] if t_ok else torch.tensor(NEG)
+                    base = par_gap if bool(is_rep[b, k, a]) else port_df.ls_add(par_lab, par_gap)
+                    r = l2[b, min(t2, T2n - 1)]
+                    gap_n = last_tot + r[0]
+                    lab_n = r[1 + a] + port_df.ls_add(last_lab, base)
+                    tot = port_df.ls_add(lab_n, gap_n)
+                    live = i < int(hi[b] - lo[b])
+                    want = (lab_n, gap_n) if live else (torch.tensor(NEG), torch.tensor(NEG))
+                    assert torch.equal(bits(lab[b, k, a, i]), bits(want[0])), (b, k, a, i)
+                    assert torch.equal(bits(gap[b, k, a, i]), bits(want[1])), (b, k, a, i)
+                    if live and bool(mx < tot):
+                        mx = tot
+                    last_lab, last_tot = lab_n, tot
+                assert torch.equal(bits(p2m[b, k, a]), bits(mx)), (b, k, a)
