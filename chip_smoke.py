@@ -9,14 +9,20 @@ Phases, each of which raises on failure (exit code non-zero):
   1. builds the CUDA kernels from ``fast_ctc_decode_tpu_torch/csrc`` with nvcc
      (sm_90a, one compiler per source, all at once) and prints the card, the
      versions, the build time, ptxas's register/spill lines and, for the two
-     duplex kernels, block size, shared memory and blocks per SM;
+     duplex kernels and both instances of the exact tree kernel, block size,
+     shared memory and blocks per SM;
   2. holds each 1D kernel against its plain PyTorch version on the card, bit
      for bit: the three versions of the beam kernel (1, 2 = the default, 3)
      and the traceback, on the shapes of the CPU tests (a +-inf/NaN batch,
      -0.0, zero lengths, beams 1/8/12/16, A+1 = 8) and at B=1024, T=1000;
   2b. the same for the CRF beam kernel and the exact tree kernel (1D and
-     CRF): NaN, empty beams, zero lengths, overflow through a small
-     ``max_nodes``, -0.0 entries, beams 8/16, S = 9, and at full width;
+     CRF, random bits in the tree kernel's scratch memory): NaN, empty
+     beams, zero lengths, overflow through a small ``max_nodes``, -0.0
+     entries, beams 8/16, S = 9, B = 1 and B = 33 (a partial block of the
+     warp-per-read kernel), beam 16 at A+1 = 8 (112 pairs: four lane
+     chunks), an overflow cut inside the second lane chunk, zero-length
+     reads beside full ones in a block, each at 1, 2, 4 or 8 reads a block,
+     and at full width;
   3. drives the main path, ``BatchBeamDecoder("NACGT", T=1000, beam_size=5,
      beam_cut_threshold=0.1, device="cuda")``, on B=32768 reads made from a
      seed, with every status OK, 8 sampled reads equal to tests/oracle.py,
@@ -31,10 +37,13 @@ Phases, each of which raises on failure (exit code non-zero):
      the exact engine (B=256), ``BatchViterbiDecoder`` (T=1000, B=8192):
      statuses OK, the kernels' launch counters grown, 8 sampled reads equal
      to tests/oracle.py (sequence and path for the exact engines, sequence
-     for the CRF CUDA engine), viterbi equal to its CPU run (phred ints
-     within 1); ``api.beam_search`` / ``api.crf_beam_search`` on the card
-     equal to the batch results; ``decode_many_crf`` resumed from a
-     checkpoint equal to an uninterrupted run;
+     for the CRF CUDA engine), viterbi equal to its CPU run on every field
+     (phred ints with tolerance 0, through the frame-ordered run-means
+     kernel); ``api.beam_search`` / ``api.crf_beam_search`` on the card
+     equal to the batch results, and one read of each timed (T=1000; T=400,
+     S=64); ``decode_many_crf`` resumed from a checkpoint equal to an
+     uninterrupted run; ``tools.exact_probe`` at B=1024 (budgets and reads
+     per block);
   7. times the new kernels against their plain versions (CUDA events) and
      the new decoders' ``decode_arrays`` / ``decode`` (wall), medians of 5;
   8. checks the duplex kernels' straight-line exp / log1p against the CUDA
@@ -55,8 +64,9 @@ Phases, each of which raises on failure (exit code non-zero):
      cut 0.0): ``BatchDuplexDecoder`` auto on the full range (slot kernel),
      ``engine="cuda"`` on a diagonal envelope (slot kernel), auto on the
      diagonal (tree kernel), ``BatchCrfDuplexDecoder`` S=16 auto on the
-     diagonal (CRF tree kernel) and on the full range (the plain CRF slot
-     engine on the card), each with its launch counters and 4 sampled pairs
+     diagonal and on the full range (the CRF tree kernel both: auto sends a
+     CRF constant window to it on the card), each with its launch counters
+     and 4 sampled pairs
      equal to tests/oracle.py (not the slot kernel on a moving window, whose
      divergence from the reference is documented); the oracle runs in a
      process pool while the card works;
@@ -82,7 +92,8 @@ Phases, each of which raises on failure (exit code non-zero):
      answered 400 on its own; then ``distributed_init`` (world size 1, NCCL)
      and ``decode_and_count`` with totals [B, 0].
 The line before the last is a JSON object describing the kernels (one entry
-per TPU kernel, with its launches on its path, its kernel-vs-plain
+per TPU kernel, and the viterbi run-means kernel, which has no Pallas
+counterpart; each with its launches on its path, its kernel-vs-plain
 difference, its time, its plain version's time and its bound: the larger of
 its bytes over the HBM rate and its f32 operations over the f32 rate); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -281,6 +292,18 @@ def exact_cases():
         ("beam8", make_reads(3, 30, 5, 5), [30] * 3, 0.0, 8, True, None),
         ("beam16", make_reads(3, 30, 5, 5), [30] * 3, 0.0, 16, True, None),
         ("A1=8", make_reads(3, 30, 8, 12), [30, 17, 30], 0.05, 5, True, None),
+        # one read alone in its block, and a partial block of the warp-per-read kernel
+        ("B1", make_reads(1, 40, 5, 15), [40], 0.1, 5, True, None),
+        ("B33", make_reads(33, 24, 5, 16), list(np.random.RandomState(17).randint(0, 25, 33)),
+         0.05, 5, True, None),
+        # 112 (tip, label) pairs: four lane chunks of 32
+        ("beam16_A1=8", make_reads(3, 24, 8, 18), [24, 11, 24], 0.0, 16, True, None),
+        # step 1 allocates 42 nodes over chunks 0-1 and only 33 fit: the cut
+        # falls inside the second lane chunk (chunk 0 allocates at most 28)
+        ("overflow_in_chunk1", make_reads(2, 12, 8, 19), [12, 12], 0.0, 16, True, 40),
+        # zero-length reads beside full reads in the same blocks
+        ("zero_length_in_block", make_reads(8, 30, 5, 20), [30, 0, 30, 30, 0, 30, 30, 30],
+         0.1, 5, True, None),
     ]
     rng = np.random.RandomState(13)
     cases.append(
@@ -318,6 +341,14 @@ def crf_cases():
         ("beam8", *crf(3, 30, 16, 30), [30] * 3, 0.0, 8, None),
         ("beam16", *crf(3, 30, 16, 31), [30] * 3, 0.0, 16, None),
         ("A1=8", *crf(3, 20, 8, 32, A1=8), [20, 9, 20], 0.05, 5, None),
+        ("B1", *crf(1, 30, 16, 35), [30], 0.1, 5, None),
+        ("B33", *crf(33, 20, 8, 36), list(np.random.RandomState(37).randint(0, 21, 33)),
+         0.05, 5, None),
+        ("beam16_A1=8_S7", *crf(3, 20, 7, 38, A1=8), [20, 9, 20], 0.0, 16, None),
+        # step 1 allocates 49 nodes over chunks 0-1 and only 33 fit (chunk 0: <= 32)
+        ("overflow_in_chunk1", *crf(2, 12, 7, 39, A1=8), [12, 12], 0.0, 16, 40),
+        ("zero_length_in_block", *crf(8, 20, 16, 40), [20, 0, 20, 20, 0, 20, 20, 20],
+         0.1, 5, None),
     ]
     rng = np.random.RandomState(33)
     cases.append(
@@ -490,7 +521,6 @@ def duplex_paths(torch, dn1, dn2, c1, i1, c2, i2, diag, log_counts):
     dec = BatchDuplexDecoder(ALPHABET, T1=T_DUP, T2=T_DUP, **kw)
     dec_cuda = BatchDuplexDecoder(ALPHABET, T1=T_DUP, T2=T_DUP, engine="cuda", **kw)
     crf_dec = BatchCrfDuplexDecoder(ALPHABET, T1=T_DUP, T2=T_DUP, n_state=S_DUP, **kw)
-    all_dup = ("duplex", "duplex_exact", "duplex_exact_crf")
     res_full, l_full, _ = drive("duplex auto full range (slot kernel)",
                                 lambda: dec.decode(dn1, dn2), ["duplex", "traceback"],
                                 ("duplex_exact",))
@@ -503,15 +533,17 @@ def duplex_paths(torch, dn1, dn2, c1, i1, c2, i2, diag, log_counts):
     res_cdiag, l_cdiag, _ = drive("CRF duplex auto diagonal (CRF tree kernel)",
                                   lambda: crf_dec.decode(c1, i1, c2, i2, envelopes=diag),
                                   ["duplex_exact_crf"], ("duplex", "duplex_exact"))
-    res_cfull, _, cfull_s = drive("CRF duplex auto full range (plain CRF slot engine)",
-                                  lambda: crf_dec.decode(c1, i1, c2, i2), [], all_dup)
+    res_cfull, l_cfull, cfull_s = drive(
+        "CRF duplex auto full range (CRF tree kernel)", lambda: crf_dec.decode(c1, i1, c2, i2),
+        ["duplex_exact_crf"], ("duplex", "duplex_exact"))
     if sum(a[0] != b[0] for a, b in zip(res_cd, res_diag)):
         log(f"slot kernel vs tree kernel on the diagonal: "
             f"{sum(a[0] != b[0] for a, b in zip(res_cd, res_diag))}/{B_DUP} sequences differ "
             f"(the slot engines rebuild re-derived prefixes' bands; documented)")
     return {"full": res_full, "cuda_diag": res_cd, "diag": res_diag, "crf_diag": res_cdiag,
             "crf_full": res_cfull, "crf_full_s": cfull_s, "dec": dec, "crf_dec": crf_dec,
-            "launches": {"full": l_full, "diag": l_diag, "crf_diag": l_cdiag}}
+            "launches": {"full": l_full, "diag": l_diag, "crf_diag": l_cdiag,
+                         "crf_full": l_cfull}}
 
 
 def auto_past_slot_smem(torch, api, log_counts):
@@ -543,11 +575,12 @@ def auto_past_slot_smem(torch, api, log_counts):
         f"engine; beam 9 raises ValueError")
 
 
-def garbage_scratch(torch, duplex_cuda, duplex_exact_cuda):
-    """Make both duplex wrappers hand their kernels scratch memory full of
-    random bits (NaN patterns and wild indices included) instead of whatever
-    ``torch.empty`` finds; returns a function that undoes it."""
-    saved = duplex_cuda._new_slab, duplex_exact_cuda._new_scratch
+def garbage_scratch(torch, duplex_cuda, duplex_exact_cuda, beam_exact_cuda):
+    """Make the duplex wrappers and the exact tree wrapper hand their kernels
+    scratch memory full of random bits (NaN patterns and wild indices
+    included) instead of whatever ``torch.empty`` finds; returns a function
+    that undoes it."""
+    saved = duplex_cuda._new_slab, duplex_exact_cuda._new_scratch, beam_exact_cuda._new_scratch
     gen = torch.Generator(device="cuda").manual_seed(90)
 
     def bits(B, words, device):
@@ -556,9 +589,10 @@ def garbage_scratch(torch, duplex_cuda, duplex_exact_cuda):
 
     duplex_cuda._new_slab = lambda B, words, device: bits(B, words, device).view(torch.float32)
     duplex_exact_cuda._new_scratch = bits
+    beam_exact_cuda._new_scratch = bits
 
     def restore():
-        duplex_cuda._new_slab, duplex_exact_cuda._new_scratch = saved
+        duplex_cuda._new_slab, duplex_exact_cuda._new_scratch, beam_exact_cuda._new_scratch = saved
     return restore
 
 
@@ -593,7 +627,7 @@ def duplex_parity_phase(torch, dev):
     on the card, with garbage in the kernels' scratch memory.  Returns the
     largest difference of the slot, tree and CRF tree kernels (0 or it
     raised)."""
-    from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
+    from fast_ctc_decode_tpu_torch.ops import beam_exact_cuda, duplex_cuda, duplex_exact_cuda
 
     diff, slot_run, slot_plain, tree_run = duplex_runners(duplex_cuda)
     t0 = time.perf_counter()
@@ -602,7 +636,7 @@ def duplex_parity_phase(torch, dev):
         f"{bad[1]} of 2^32 float arguments ({time.perf_counter() - t0:.2f} s)")
     if any(bad):
         raise AssertionError("the duplex kernels' exp / log1p differ from the math library's")
-    restore = garbage_scratch(torch, duplex_cuda, duplex_exact_cuda)
+    restore = garbage_scratch(torch, duplex_cuda, duplex_exact_cuda, beam_exact_cuda)
     err_slot = err_tree = err_tree_crf = 0
     for name, kind, inputs, kw in duplex_parity_cases():
         K, thr, collapse, N = kw["K"], kw["thr"], kw["collapse"], kw["N"]
@@ -849,7 +883,10 @@ def duplex_phases(torch, dev, smi, log_counts):
         "auto diagonal decode": median_ms(lambda: dec.decode(dn1, dn2, envelopes=diag), torch, 3),
         "CRF auto diagonal decode": median_ms(
             lambda: crf_dec.decode(c1, i1, c2, i2, envelopes=diag), torch, 3),
-        "CRF auto full range decode (plain engine, first call)": cfull_s * 1e3,
+        "CRF auto full range decode (CRF tree kernel; the plain CRF slot engine it replaces took "
+        "89097 ms on an H100 80GB HBM3 at 700 W)":
+            median_ms(lambda: crf_dec.decode(c1, i1, c2, i2), torch, 3),
+        "CRF auto full range decode (CRF tree kernel), first call": cfull_s * 1e3,
     }
     for name, t in dec_ms.items():
         log(f"time duplex {name} {shape}: {t!r} ms ({B_DUP / (t / 1e3):.1f} pairs/s) [{smi}]")
@@ -871,6 +908,7 @@ def duplex_phases(torch, dev, smi, log_counts):
          "ms": rows["tree"][0], "plain_ms": rows["tree"][1],
          "bound_ms": bounds["tree"][0], "bound_by": bounds["tree"][1], "library_ms": None,
          "crf_launches": l_cdiag["duplex_exact_crf"],
+         "crf_full_range_launches": res["launches"]["crf_full"]["duplex_exact_crf"],
          "crf_ms": rows["tree crf"][0], "crf_plain_ms": rows["tree crf"][1]},
     ]
 
@@ -1093,6 +1131,99 @@ def serving_phase(torch, dev, smi, oracle, counts, reset_counts):
     log(f"distributed_init (world size 1, {backend}) + decode_and_count: totals "
         f"{totals.tolist()} after all_reduce")
 
+def exact_launch_shapes(build_log):
+    """Log what ptxas reports for the exact tree kernel's four instances, and
+    how many blocks of four reads (warps) one SM holds for each."""
+    from fast_ctc_decode_tpu_torch.ops import beam_exact_cuda
+
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "exact_beam_kernel" in line:
+            log("ptxas exact: " + " | ".join(x.strip() for x in lines[i:i + 4]))
+    rpb = beam_exact_cuda.READS_PER_BLOCK
+    for K, A, what in ((BEAM, len(ALPHABET) - 1, "<5, 4>"), (16, 7, "<16, 7>")):
+        for crf in (False, True):
+            blocks = beam_exact_cuda.blocks_per_sm(K, A, crf=crf, reads_per_block=rpb)
+            log(f"exact_beam_kernel{what}{' CRF' if crf else ''}: block {32 * rpb} threads "
+                f"({rpb} reads, one warp each), {blocks} blocks per SM "
+                f"({blocks * rpb} reads per SM)")
+
+
+def exact_parity_phase(torch, dev):
+    """Phase 2b: the CRF beam kernel and the exact tree kernel (1D and CRF)
+    against their plain versions, bit for bit, with random bits in the tree
+    kernel's scratch; the small cases at 1, 2, 4 or 8 reads a block in turn,
+    the full-width ones at the default.  Returns (err_crf, err_exact,
+    err_exact_crf): 0, or it raised."""
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda, beam_exact_cuda, beam_fast
+    from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
+
+    restore = garbage_scratch(torch, duplex_cuda, duplex_exact_cuda, beam_exact_cuda)
+    rpbs = (4, 1, 2, 8)
+    err_crf = err_exact = err_exact_crf = 0
+    for i, (name, probs, lengths, thr, K, collapse, N) in enumerate(exact_cases()):
+        p = torch.from_numpy(probs).to(dev)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        N = N or beam_exact_cuda.beam_ops.default_max_nodes(probs.shape[1], K, probs.shape[2] - 1)
+        rpb = rpbs[i % 4] if probs.shape[0] <= 64 else beam_exact_cuda.READS_PER_BLOCK
+        got = beam_exact_cuda.beam_search_exact_kernel_batch(
+            p, ln, thr, beam_size=K, collapse_repeats=collapse, max_nodes=N, reads_per_block=rpb)
+        want = beam_exact_cuda.beam_search_exact_plain(
+            p, ln, thr, beam_size=K, collapse_repeats=collapse, max_nodes=N)
+        d = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
+        torch.cuda.synchronize()
+        log(f"parity exact {name} (B={probs.shape[0]}, {rpb} reads a block): max_abs_err {d}, "
+            f"err codes {sorted(set(got['err'].tolist()))}")
+        if d:
+            raise AssertionError(f"exact kernel != plain on case {name}")
+        err_exact = max(err_exact, d)
+    for i, (name, probs, init, lengths, thr, K, N) in enumerate(crf_cases()):
+        p = torch.from_numpy(probs).to(dev)
+        ini = torch.from_numpy(init).to(dev)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        ids_k = beam_cuda.crf_beam_ids_kernel(p, ini, ln, thr, beam_size=K)
+        ids_p = beam_cuda.crf_beam_ids_plain(p, ini, ln, thr, beam_size=K)
+        d_ids = max(max_abs_diff(x, y) for x, y in zip(ids_k, ids_p))
+        got = beam_cuda.crf_beam_search_kernel_batch(p, ini, ln, thr, beam_size=K)
+        want = beam_fast.crf_beam_search_fast_batch(p, ini, ln, thr, beam_size=K)
+        d_crf = max(d_ids, max(max_abs_diff(got[f], want[f]) for f in FIELDS))
+        if B_CRF_EXACT < probs.shape[0]:  # the exact engine's full width is B_CRF_EXACT
+            p, ini, ln = p[:B_CRF_EXACT].contiguous(), ini[:B_CRF_EXACT].contiguous(), ln[:B_CRF_EXACT]
+        N = N or beam_exact_cuda.beam_ops.default_max_nodes(probs.shape[1], K, probs.shape[3] - 1)
+        rpb = rpbs[i % 4] if probs.shape[0] <= 64 else beam_exact_cuda.READS_PER_BLOCK
+        got = beam_exact_cuda.crf_beam_search_exact_kernel_batch(
+            p, ini, ln, thr, beam_size=K, max_nodes=N, reads_per_block=rpb)
+        want = beam_exact_cuda.crf_beam_search_exact_plain(
+            p, ini, ln, thr, beam_size=K, max_nodes=N)
+        d_ex = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
+        torch.cuda.synchronize()
+        log(f"parity crf {name} (exact: B={p.shape[0]}, {rpb} reads a block): beam max_abs_err "
+            f"{d_crf}, exact {d_ex}, err codes {sorted(set(ids_k[2].tolist()))} / "
+            f"{sorted(set(got['err'].tolist()))}")
+        if d_crf or d_ex:
+            raise AssertionError(f"CRF kernel != plain on case {name}")
+        err_crf, err_exact_crf = max(err_crf, d_crf), max(err_exact_crf, d_ex)
+    restore()
+    return err_crf, err_exact, err_exact_crf
+
+
+def single_read_times(torch, smi, probs, crf_probs, crf_init):
+    """Phase 6: one read through ``api.beam_search`` (T=1000) and
+    ``api.crf_beam_search`` (T=400, S=64) on the card, default (exact)
+    engine: wall ms, median of 5, CUDA-synchronised."""
+    from fast_ctc_decode_tpu_torch import api
+
+    ms = {
+        f"api.beam_search one read T={probs.shape[0]}": median_ms(
+            lambda: api.beam_search(probs, ALPHABET, BEAM, THR, device="cuda"), torch),
+        f"api.crf_beam_search one read T={crf_probs.shape[0]} S={crf_probs.shape[1]}": median_ms(
+            lambda: api.crf_beam_search(crf_probs, crf_init, ALPHABET, BEAM, THR, device="cuda"),
+            torch),
+    }
+    for name, t in ms.items():
+        log(f"time {name} (exact engine, the kernel at B=1): {t!r} ms [{smi}]")
+    return ms
+
 
 def main():
     import torch
@@ -1109,6 +1240,9 @@ def main():
     from fast_ctc_decode_tpu_torch import api, decode_many_crf, native
     from fast_ctc_decode_tpu_torch.ops import _build, beam_cuda, beam_fast
     from fast_ctc_decode_tpu_torch.ops import beam_exact_cuda, duplex_cuda, duplex_exact_cuda
+    from fast_ctc_decode_tpu_torch.ops import viterbi as viterbi_ops
+    from fast_ctc_decode_tpu_torch.ops import viterbi_cuda
+    from fast_ctc_decode_tpu_torch.tools import exact_probe
     from fast_ctc_decode_tpu_torch.utils import profiling
 
     run_t0 = time.perf_counter()
@@ -1131,6 +1265,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"ptxas: {line.strip()}")
     duplex_launch_shapes(build.log)
+    exact_launch_shapes(build.log)
 
     # ---- phase 2: kernel vs plain, bit for bit, on the card ----
     # every version of the beam kernel (1, 2 = the default, 3) against the
@@ -1169,45 +1304,7 @@ def main():
             f"{sorted(set(e_p.tolist()))}")
 
     # ---- phase 2b: CRF beam and exact tree kernels vs plain, bit for bit ----
-    err_crf = err_exact = err_exact_crf = 0
-    for name, probs, lengths, thr, K, collapse, N in exact_cases():
-        p = torch.from_numpy(probs).to(dev)
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        N = N or beam_exact_cuda.beam_ops.default_max_nodes(probs.shape[1], K, probs.shape[2] - 1)
-        got = beam_exact_cuda.beam_search_exact_kernel_batch(
-            p, ln, thr, beam_size=K, collapse_repeats=collapse, max_nodes=N)
-        want = beam_exact_cuda.beam_search_exact_plain(
-            p, ln, thr, beam_size=K, collapse_repeats=collapse, max_nodes=N)
-        d = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
-        torch.cuda.synchronize()
-        log(f"parity exact {name}: max_abs_err {d}, err codes {sorted(set(got['err'].tolist()))}")
-        if d:
-            raise AssertionError(f"exact kernel != plain on case {name}")
-        err_exact = max(err_exact, d)
-    for name, probs, init, lengths, thr, K, N in crf_cases():
-        p = torch.from_numpy(probs).to(dev)
-        ini = torch.from_numpy(init).to(dev)
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        ids_k = beam_cuda.crf_beam_ids_kernel(p, ini, ln, thr, beam_size=K)
-        ids_p = beam_cuda.crf_beam_ids_plain(p, ini, ln, thr, beam_size=K)
-        d_ids = max(max_abs_diff(x, y) for x, y in zip(ids_k, ids_p))
-        got = beam_cuda.crf_beam_search_kernel_batch(p, ini, ln, thr, beam_size=K)
-        want = beam_fast.crf_beam_search_fast_batch(p, ini, ln, thr, beam_size=K)
-        d_crf = max(d_ids, max(max_abs_diff(got[f], want[f]) for f in FIELDS))
-        if B_CRF_EXACT < probs.shape[0]:  # the exact engine's full width is B_CRF_EXACT
-            p, ini, ln = p[:B_CRF_EXACT].contiguous(), ini[:B_CRF_EXACT].contiguous(), ln[:B_CRF_EXACT]
-        N = N or beam_exact_cuda.beam_ops.default_max_nodes(probs.shape[1], K, probs.shape[3] - 1)
-        got = beam_exact_cuda.crf_beam_search_exact_kernel_batch(
-            p, ini, ln, thr, beam_size=K, max_nodes=N)
-        want = beam_exact_cuda.crf_beam_search_exact_plain(
-            p, ini, ln, thr, beam_size=K, max_nodes=N)
-        d_ex = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
-        torch.cuda.synchronize()
-        log(f"parity crf {name}: beam max_abs_err {d_crf}, exact {d_ex}, err codes "
-            f"{sorted(set(ids_k[2].tolist()))} / {sorted(set(got['err'].tolist()))}")
-        if d_crf or d_ex:
-            raise AssertionError(f"CRF kernel != plain on case {name}")
-        err_crf, err_exact_crf = max(err_crf, d_crf), max(err_exact_crf, d_ex)
+    err_crf, err_exact, err_exact_crf = exact_parity_phase(torch, dev)
 
     # ---- phase 3: the main path at B=32768, T=1000 ----
     probs = make_reads(B_MAIN, T_MAIN, len(ALPHABET), 42)
@@ -1379,25 +1476,25 @@ def main():
     vit_len = np.random.RandomState(46).randint(0, T_MAIN + 1, size=B_VITERBI).astype(np.int32)
     vit_len_d = torch.from_numpy(vit_len).to(dev)
     vit_dec = BatchViterbiDecoder(ALPHABET, T=T_MAIN, device="cuda")
+    torch.cuda.synchronize()
+    viterbi_cuda.reset_launches()
     vit_gpu = {k: v.cpu() for k, v in vit_dec.decode_arrays(vit_probs_d, vit_len_d).items()}
+    path_launches["viterbi_runs"] = viterbi_cuda.launches["viterbi_runs"]
+    if path_launches["viterbi_runs"] < 1:
+        raise AssertionError("viterbi path: the run-means kernel never launched")
     vit_cpu = BatchViterbiDecoder(ALPHABET, T=T_MAIN, device="cpu").decode_arrays(
         torch.from_numpy(vit_probs), torch.from_numpy(vit_len))
-    for f in ("tokens", "path", "n"):
+    for f in ("tokens", "path", "n", "qints"):  # tolerance 0, phred ints included
         if not torch.equal(vit_gpu[f], vit_cpu[f]):
             raise AssertionError(f"viterbi: {f} on the card differs from the CPU run")
-    q_diff = (vit_gpu["qints"] - vit_cpu["qints"]).abs()
-    valid = torch.arange(T_MAIN)[None, :] < vit_cpu["n"][:, None]
-    q_diff = torch.where(valid, q_diff, 0)
-    if int(q_diff.max()) > 1:
-        raise AssertionError(f"viterbi: phred ints differ by {int(q_diff.max())} (> 1)")
     vit_res = vit_dec.decode(vit_probs_d, vit_len_d, qstring=True)
     want0 = api.viterbi_search(vit_probs[0, : vit_len[0]], ALPHABET, qstring=True) \
         if vit_len[0] else ("", [])
     if vit_res[0][1] != want0[1] or vit_res[0][0][: len(want0[1])] != want0[0][: len(want0[1])]:
         raise AssertionError("viterbi: read 0 differs from the single-read API")
-    log(f"viterbi path: {B_VITERBI} reads, tokens/path/n equal to the CPU run, phred ints "
-        f"within 1 (tolerance 1: f32 run sums by atomics on the card); reads with a "
-        f"differing phred int: {int((q_diff.amax(1) > 0).sum())}")
+    log(f"viterbi path: {B_VITERBI} reads, launches {{'viterbi_runs': "
+        f"{path_launches['viterbi_runs']}}}; tokens, path, n and phred ints equal to the CPU "
+        f"run (tolerance 0)")
 
     # the single-read API on the card equals the batch results
     for i in (0, 5):
@@ -1413,6 +1510,9 @@ def main():
             raise AssertionError(f"api.crf_beam_search(fast) read {i} differs from the batch")
     log("single-read api.beam_search / api.crf_beam_search (exact, fast) on the card "
         "equal the batch results")
+    single_ms = single_read_times(torch, smi, ex_probs[0], crf_probs[0], crf_init[0])
+    for line, _ in exact_probe.run(B_EXACT, T_MAIN, device=dev):
+        log(line)
 
     crf_lens = np.random.RandomState(47).randint(50, T_CRF + 1, size=300)
     crf_lens[0] = T_CRF  # the interrupted run sees the same auto bucket edges
@@ -1456,6 +1556,31 @@ def main():
             *xc_args, THR, beam_size=BEAM)),
         ("plain exact crf", xc_shape, lambda: beam_exact_cuda.crf_beam_search_exact_plain(
             *xc_args, THR, beam_size=BEAM, max_nodes=xc_dec.max_nodes)),
+    ]
+    vl, vp, v_emit, vs = viterbi_ops.frame_runs(vit_probs_d, vit_len_d)
+    vpath, vn = viterbi_ops.emit_path(v_emit, vs)
+    # one PyTorch call computing the same means (blank frames to a dump column;
+    # atomics in no fixed order): the yardstick, not used by the port
+    v_idx = torch.where(vl != 0, vs.clamp_min(0).long(), T_MAIN)
+    v_zero = torch.zeros((B_VITERBI, T_MAIN + 1), dtype=torch.float32, device=dev)
+    v_got = viterbi_cuda.run_means(vl, vp, vpath, vn).cpu()
+    # the plain version in its own order: frame order on the CPU, atomics on the card
+    v_cpu = viterbi_cuda.run_means_plain(vl.cpu(), vp.cpu(), vpath.cpu(), vn.cpu())
+    v_card = viterbi_cuda.run_means_plain(vl, vp, vpath, vn).cpu()
+    v_err = max_abs_diff(v_got.view(torch.int32), v_cpu.view(torch.int32))
+    log(f"viterbi run-means kernel {B_VITERBI}x{T_MAIN}: max_abs_err {v_err} (f32 bits) against "
+        f"the plain version on the CPU; the plain scatter-add on the card differs from it in "
+        f"{int((v_card.view(torch.int32) != v_cpu.view(torch.int32)).sum())} entries")
+    if v_err:
+        raise AssertionError("viterbi run-means kernel != plain (CPU, frame order)")
+    vit_shape = f"B={B_VITERBI} T={T_MAIN}"
+    timed += [
+        ("viterbi run-means kernel", vit_shape,
+         lambda: viterbi_cuda.run_means(vl, vp, vpath, vn)),
+        ("plain viterbi run means", vit_shape,
+         lambda: viterbi_cuda.run_means_plain(vl, vp, vpath, vn)),
+        ("library scatter_reduce mean", vit_shape, lambda: v_zero.clone().scatter_reduce_(
+            1, v_idx, vp, "mean", include_self=False)),
     ]
     new_ms = {}
     for name, shape, fn in timed:
@@ -1503,6 +1628,9 @@ def main():
                        extra_in=4 * B_CRF * S_CRF)
     b_exact = beam_bound(np.full(B_EXACT, T_MAIN), T_MAIN, BEAM, A1,
                          out_bytes=4 * (2 * B_EXACT * T_MAIN + 2 * B_EXACT))
+    # labels, pmax, path [B, T] and n [B] read once, the [B, T] means written
+    # once; two adds a frame and at most one divide a frame
+    b_vit = bound(4 * (4 * B_VITERBI * T_MAIN + B_VITERBI), 3 * B_VITERBI * T_MAIN)
     b_exact_crf = beam_bound(np.full(B_CRF_EXACT, T_CRF), T_CRF, BEAM, A1, rows_per_step=BEAM,
                              extra_in=4 * B_CRF_EXACT * S_CRF,
                              out_bytes=4 * (2 * B_CRF_EXACT * T_CRF + 2 * B_CRF_EXACT))
@@ -1527,14 +1655,23 @@ def main():
             err_crf, new_ms["crf beam kernel"], new_ms["plain crf beam"], b_crf),
         row("exact_beam_kernel", "exact_beam_kernel.cu",
             "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65", path_launches["exact"], err_exact,
-            new_ms["exact kernel"], new_ms["plain exact"], b_exact),
+            new_ms["exact kernel"], new_ms["plain exact"], b_exact,
+            reads_per_block=beam_exact_cuda.READS_PER_BLOCK,
+            single_read_ms=single_ms[f"api.beam_search one read T={T_MAIN}"]),
         row("exact_beam_kernel_crf", "exact_beam_kernel.cu",
             "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65", path_launches["exact_crf"],
-            err_exact_crf, new_ms["exact crf kernel"], new_ms["plain exact crf"], b_exact_crf),
+            err_exact_crf, new_ms["exact crf kernel"], new_ms["plain exact crf"], b_exact_crf,
+            reads_per_block=beam_exact_cuda.READS_PER_BLOCK,
+            single_read_ms=single_ms[f"api.crf_beam_search one read T={T_CRF} S={S_CRF}"]),
         *duplex_rows,
         row("beam_ablate_kernel", "beam_ablate_kernel.cu", "tools/kernel_ablate.py:36",
             abl["launches"], abl["max_abs_err"], abl["ms"], abl["plain_ms"], abl["bound"],
             sets_ms=abl["sets_ms"]),
+        dict(row("viterbi_run_means_kernel", "viterbi_runs_kernel.cu",
+                 "none: no Pallas counterpart (XLA segment_sum, "
+                 "fast_ctc_decode_tpu/ops/viterbi.py:96)", path_launches["viterbi_runs"], v_err,
+                 new_ms["viterbi run-means kernel"], new_ms["plain viterbi run means"], b_vit),
+             library_ms=new_ms["library scatter_reduce mean"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -414,7 +414,8 @@ def crf_beam_search_duplex(
     """2-D CRF pair-consensus beam search; parity with src/lib.rs:495-578 /
     src/duplex.rs:652-834.  ``engine`` as in ``beam_search_duplex``, except
     that "fast" runs the plain CRF slot engine on every device (there is no
-    CRF slot kernel, as in the JAX package)."""
+    CRF slot kernel, as in the JAX package), and auto on a CUDA device runs
+    the CRF tree kernel for every envelope."""
     device = resolve_device(device)
     alphabet = normalize_alphabet(alphabet)
     network_output_1 = _as_f32(network_output_1, 3, "network_output_1")

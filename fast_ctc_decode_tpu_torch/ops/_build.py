@@ -153,12 +153,14 @@ SIGNATURES = {
     "ctc_crf_beam_ids_launch": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ctc_exact_beam_launch": [
         _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        _P, ctypes.c_longlong, _P, _P, _P, _P, _P,
+        _P, ctypes.c_longlong, _P, _P, _P, _P, _I, _P,
     ],
+    "ctc_exact_beam_blocks_per_sm": [_I, _I, _I, _I],
     "ctc_duplex_slot_launch": [
         _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _P, ctypes.c_longlong, _P, _P, _P, _P,
     ],
+    "ctc_viterbi_run_means_launch": [_P, _P, _P, _P, _I, _I, _P, _P],
     "ctc_duplex_math_check_launch": [_P, _P],
     "ctc_duplex_block_threads": [],
     "ctc_duplex_slot_blocks_per_sm": [_I, _I],

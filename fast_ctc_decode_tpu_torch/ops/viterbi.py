@@ -11,12 +11,16 @@ repeats and is not reset by blanks.
 Two assembly paths, as in the JAX package:
  - ``viterbi_device_batch``: everything on the device for a [B, T, A+1]
    batch, fixed-width outputs (tokens, path, phred ints, count).  Run means
-   use an f32 scatter-add: on the CPU it adds in frame order, as the JAX
-   ``segment_sum`` does; on CUDA the adds are atomics in no fixed order, so
-   a run mean may differ in its last bits and its phred int by at most 1.
- - ``assemble_host``: NumPy assembly from (labels, pmax) with bit-exact
-   sequential f32 run sums (``np.add.reduceat``), used by the single-read
-   parity API.
+   add each run in frame order, as the JAX ``segment_sum`` does
+   (``viterbi_cuda.run_means``: the plain scatter-add on the CPU, the
+   hand-written kernel ``csrc/viterbi_runs_kernel.cu`` on a CUDA device,
+   where a scatter-add's atomics would add in no fixed order).  The card and
+   the CPU give the same bits.
+ - ``assemble_host``: NumPy assembly from (labels, pmax) with f32 run sums
+   by ``np.add.reduceat``, used by the single-read parity API as the JAX
+   package does.  ``np.add.reduceat`` does not add an f32 run of 3 or
+   more terms left to right, so its last bits (and, rarely, a phred
+   character) may differ from the frame-ordered sum.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from . import viterbi_cuda
 from .phred import phred_int, phred_int_np
 
 
@@ -36,6 +41,30 @@ def viterbi_core(probs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     maximum), as ``jnp.argmax`` and the reference fold do.
     """
     return probs.argmax(-1).to(torch.int32), probs.amax(-1)
+
+
+def frame_runs(probs: torch.Tensor, lengths: torch.Tensor, *, collapse_repeats: bool = True):
+    """Per-frame (label, max prob) of a padded [B, T, A+1] batch, masked to
+    label 0, probability 0 past each read's length, with each frame's emit
+    flag and segment (the index of the most recent emitting frame, -1 before
+    the first): (labels [B, T] i32, pmax [B, T] f32, emit [B, T] bool,
+    seg [B, T] i32), all contiguous."""
+    B, T = probs.shape[0], probs.shape[1]
+    dev = probs.device
+    frame = torch.arange(T, dtype=torch.int32, device=dev)
+    in_range = frame[None, :] < lengths.to(torch.int32)[:, None]
+
+    labels, pmax = viterbi_core(probs)
+    labels = torch.where(in_range, labels, 0).contiguous()
+    pmax = torch.where(in_range, pmax, 0.0).contiguous()
+
+    nonzero = labels != 0
+    prev = torch.cat(
+        [torch.full((B, 1), -1, dtype=torch.int32, device=dev), labels[:, :-1]], 1
+    )
+    emit = nonzero & (labels != prev) if collapse_repeats else nonzero
+    seg = torch.cumsum(emit.to(torch.int32), 1, dtype=torch.int32) - 1
+    return labels, pmax, emit, seg.contiguous()
 
 
 def viterbi_device_batch(
@@ -56,43 +85,22 @@ def viterbi_device_batch(
       qints [B, T] i64: rounded phred integer of each run's mean;
       n [B] i32: number of emitted tokens.
     """
-    B, T = probs.shape[0], probs.shape[1]
-    dev = probs.device
-    frame = torch.arange(T, dtype=torch.int32, device=dev)
-    in_range = frame[None, :] < lengths.to(torch.int32)[:, None]
-
-    labels, pmax = viterbi_core(probs)
-    labels = torch.where(in_range, labels, 0)
-    pmax = torch.where(in_range, pmax, 0.0)
-
-    nonzero = labels != 0
-    prev = torch.cat(
-        [torch.full((B, 1), -1, dtype=torch.int32, device=dev), labels[:, :-1]], 1
-    )
-    emit = nonzero & (labels != prev) if collapse_repeats else nonzero
-
-    # segment of each frame: the index of the most recent emit
-    seg = torch.cumsum(emit.to(torch.int32), 1, dtype=torch.int32) - 1
-    n = emit.sum(1, dtype=torch.int32)
-
-    contrib = torch.where(nonzero, pmax, 0.0)
-    seg_safe = seg.clamp_min(0).long()
-    sums = torch.zeros((B, T), dtype=torch.float32, device=dev).scatter_add_(
-        1, seg_safe, contrib
-    )
-    counts = torch.zeros((B, T), dtype=torch.float32, device=dev).scatter_add_(
-        1, seg_safe, nonzero.to(torch.float32)
-    )
-    mean = sums / counts.clamp_min(1.0)
-    qints = phred_int(mean, qscale, qbias)
-
-    # front-pack the emitting frames; a dump column takes the rest
-    slot = torch.where(emit, seg, T).long()
-    path = torch.zeros((B, T + 1), dtype=torch.int32, device=dev)
-    path.scatter_(1, slot, frame.expand(B, T).contiguous())
-    path = path[:, :T].contiguous()
+    labels, pmax, emit, seg = frame_runs(probs, lengths, collapse_repeats=collapse_repeats)
+    path, n = emit_path(emit, seg)
     tokens = labels.gather(1, path.long())
+    qints = phred_int(viterbi_cuda.run_means(labels, pmax, path, n), qscale, qbias)
     return {"tokens": tokens, "path": path, "qints": qints, "n": n}
+
+
+def emit_path(emit: torch.Tensor, seg: torch.Tensor):
+    """The emitting frames front-packed, 0 past the count (a dump column
+    takes the rest): (path [B, T] i32, n [B] i32)."""
+    B, T = emit.shape
+    frame = torch.arange(T, dtype=torch.int32, device=emit.device)
+    slot = torch.where(emit, seg, T).long()
+    path = torch.zeros((B, T + 1), dtype=torch.int32, device=emit.device)
+    path.scatter_(1, slot, frame.expand(B, T).contiguous())
+    return path[:, :T].contiguous(), emit.sum(1, dtype=torch.int32)
 
 
 def assemble_host(
@@ -106,8 +114,9 @@ def assemble_host(
 ) -> Tuple[str, List[int]]:
     """Bit-exact host assembly from per-frame (label, max prob).
 
-    Replicates the reference's sequential f32 run accumulation
-    (src/search.rs:341-380) using np.add.reduceat (sequential f32 adds).
+    Follows the reference's f32 run accumulation (src/search.rs:341-380)
+    with np.add.reduceat, as the JAX package does; for runs of 3 or more
+    terms reduceat's order is not the reference's left to right.
     """
     labels = np.asarray(labels, dtype=np.int64)
     pmax = np.asarray(pmax, dtype=np.float32)

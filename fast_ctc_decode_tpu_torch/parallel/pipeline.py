@@ -360,7 +360,10 @@ def decode_many(
     JSONL checkpoint per batch: a preempted run restarted with the same
     ``checkpoint_path`` resumes at exactly the undecoded reads.  The
     checkpoint format and its ``meta`` keys are the JAX package's, so a run
-    resumes across the two packages.  Results are returned in input order.
+    resumes across the two packages: the engine may differ in name within
+    its class (``utils.checkpoint.ENGINE_CLASSES["beam"]``: the JAX package's
+    "pallas" and "fast" resume under the port's "cuda" and "fast").  Results
+    are returned in input order.
     """
     from ..utils import profiling
     from ..utils.checkpoint import DecodeCheckpoint
@@ -384,7 +387,7 @@ def decode_many(
         "engine": engine,
     }
 
-    ckpt = DecodeCheckpoint.load_or_create(checkpoint_path, meta)
+    ckpt = DecodeCheckpoint.load_or_create(checkpoint_path, meta, kind="beam")
     try:
         if ckpt.cursor >= len(reads):
             profiling.log.info(
@@ -458,7 +461,9 @@ def decode_many_crf(
     [S])``; variable T rides power-of-two buckets (padded frames are masked
     by per-read lengths, padding rows decode empty).  The checkpoint's
     ``meta`` keys are the JAX package's, with the engine resolved for
-    ``device``, so a JAX-written checkpoint of the same engine resumes here.
+    ``device``; a JAX-written checkpoint resumes here under any engine of
+    its class (``utils.checkpoint.ENGINE_CLASSES["beam"]``: JAX's None for
+    auto, "pallas" and "fast" under the port's "cuda" and "fast").
     Returns ``[(sequence, path, err_code)]`` in input order."""
     from ..utils import profiling
     from ..utils.checkpoint import DecodeCheckpoint
@@ -477,7 +482,7 @@ def decode_many_crf(
         "beam_cut_threshold": float(beam_cut_threshold),
         "engine": engine,
     }
-    ckpt = DecodeCheckpoint.load_or_create(checkpoint_path, meta)
+    ckpt = DecodeCheckpoint.load_or_create(checkpoint_path, meta, kind="beam")
     try:
         if ckpt.cursor >= len(reads):
             return ckpt.results_in_order(len(reads))
@@ -614,17 +619,21 @@ def auto_duplex_engine(lo, hi, device, beam_size: int, *, crf: bool = False) -> 
     clamped ``[B, T1]`` bounds (numpy).
 
     A moving window goes to "exact": only band reuse is bit-exact there.  A
-    constant window goes to "fast" on the CPU, and for CRF on any device
-    (there is no CRF slot kernel); on a CUDA device to the slot kernel
-    ("cuda") when its shared memory holds the band, and otherwise to
+    constant window goes to "fast" on the CPU; on a CUDA device to the slot
+    kernel ("cuda") when its shared memory holds the band, and otherwise to
     "exact": the tree kernel gives the same sequences and keeps its bands in
-    global memory.  Past the lane bound both kernels share (beam_size * A
-    > 32) the chosen kernel raises ValueError."""
+    global memory.  A CRF constant window on a CUDA device goes to "exact"
+    too (there is no CRF slot kernel, and the CRF tree kernel gives the CRF
+    slot engine's sequences and statuses on constant windows).  Past the
+    lane bound both kernels share (beam_size * A > 32) the chosen kernel
+    raises ValueError."""
     constant = lo.size == 0 or bool(np.all(lo == lo[0, 0]) and np.all(hi == hi[0, 0]))
     if not constant:
         return "exact"
-    if torch.device(device).type != "cuda" or crf:
+    if torch.device(device).type != "cuda":
         return "fast"
+    if crf:
+        return "exact"
     Wk = duplex_cuda.band_width(torch.from_numpy(lo), torch.from_numpy(hi))
     return "cuda" if duplex_cuda.fits_shared_memory(int(beam_size), Wk) else "exact"
 
@@ -769,10 +778,12 @@ class BatchCrfDuplexDecoder:
     ``[B, T1, 2]`` per-pair) and ``lengths [B]``.
 
     ``engine`` mirrors ``BatchDuplexDecoder``'s parity-first policy:
-      - None (auto): constant-window envelopes run the plain CRF slot engine
-        on the device (sequence-exact there; the JAX package has no CRF slot
-        kernel either, and leaves this engine to XLA); moving windows run the
-        exact tree engine.
+      - None (auto): on a CUDA device, every envelope runs the CRF tree
+        kernel (there is no CRF slot kernel, nor has the JAX package one; on
+        constant windows the tree gives the CRF slot engine's sequences and
+        statuses); on the CPU, constant-window envelopes run the plain CRF
+        slot engine (sequence-exact there) and moving windows the plain tree
+        engine.
       - "fast": the plain CRF slot engine everywhere.
       - "exact": the tree engine: the CRF tree kernel on CUDA, the plain
         engine on the CPU.
@@ -823,6 +834,14 @@ class BatchCrfDuplexDecoder:
         return out, batch.lo.shape[0]
 
 
+def _constant_window(envelope) -> bool:
+    """True for no envelope (the full range) or one whose rows are all equal."""
+    if envelope is None:
+        return True
+    env = np.asarray(envelope)
+    return bool(np.all(env == env[:1]))
+
+
 def decode_many_duplex(
     pairs: Sequence,
     alphabet,
@@ -845,7 +864,10 @@ def decode_many_duplex(
     ``lengths``, read 2 rides the per-pair envelope (capped at the true T2).
     Results ``[(sequence, err_code)]`` return in input order; the JSONL
     checkpoint's ``meta`` keys and values are the JAX package's (``engine``
-    as given, None for auto), so a JAX-written checkpoint resumes here.
+    as given, None for auto), so a JAX-written checkpoint resumes here, under
+    any engine of its class (``utils.checkpoint.ENGINE_CLASSES``: JAX's
+    "exact-pallas" as "exact"; the slot engines "pallas", "cuda" and "fast"
+    as one another when every pair's window is constant).
     """
     from ..utils import profiling
     from ..utils.checkpoint import DecodeCheckpoint
@@ -867,7 +889,9 @@ def decode_many_duplex(
         "collapse_repeats": bool(collapse_repeats),
         "engine": engine,
     }
-    ckpt = DecodeCheckpoint.load_or_create(checkpoint_path, meta)
+    constant = all(_constant_window(p[2] if len(p) > 2 else None) for p in pairs)
+    ckpt = DecodeCheckpoint.load_or_create(
+        checkpoint_path, meta, kind="duplex" if constant else "duplex_moving")
     try:
         if ckpt.cursor >= len(pairs):
             return [(s, e) for s, _, e in ckpt.results_in_order(len(pairs))]

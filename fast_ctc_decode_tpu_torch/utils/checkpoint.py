@@ -11,6 +11,14 @@ decode time):
     {"meta": {...}}                               # header line
     {"i": [7, 8, 9], "r": [[seq, path, err], …]}  # one line per batch
 
+The ``meta`` header must match for a run to resume, key for key, except
+the engine's name: engines whose stored results are the same form one class
+(``ENGINE_CLASSES``), so a run resumes under any name of its class.  That
+is what lets a JAX-written checkpoint resume here: the JAX package calls its
+kernel "pallas" where the port says "cuda", writes None for an automatic
+CRF engine where the port writes the engine it chose, and names its duplex
+tree kernel "exact-pallas".
+
 Each batch line records explicit read *indices*, so out-of-order
 processing (length-bucketed decode) resumes exactly.  Lines are flushed +
 fsynced per batch; a crash mid-write leaves at most one truncated trailing
@@ -28,6 +36,33 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 Result = Tuple[str, List[int], int]
 
+#: Engine names whose checkpointed results are the same, by kind of stream.
+#: "beam" (1D and CRF, which store (sequence, path, err)): the JAX kernel
+#: "pallas", the port's kernel "cuda" and both packages' "fast" are bit-
+#: identical, and a missing engine or None is auto, the hash engine on both
+#: sides; "exact" records a prefix's first creation time in the path, the
+#: hash engines its latest, so it stands alone.  "duplex" (which stores
+#: (sequence, err)): the tree kernel "exact-pallas" and the tree engine
+#: "exact" are one class; the slot engines "pallas", "cuda" and "fast" are
+#: another, for a stream whose windows are all constant ("duplex"), where
+#: they agree; on moving windows they diverge, and each stands alone
+#: ("duplex_moving").  None (auto) is its own class in both.
+ENGINE_CLASSES = {
+    "beam": (frozenset({"pallas", "cuda", "fast", None}), frozenset({"exact"})),
+    "duplex": (frozenset({"exact-pallas", "exact"}), frozenset({"pallas", "cuda", "fast"}),
+               frozenset({None})),
+    "duplex_moving": (frozenset({"exact-pallas", "exact"}), frozenset({None})),
+}
+
+
+def same_run(written: Dict, meta: Dict, kind: str) -> bool:
+    """True when a checkpoint written with ``written`` may resume under
+    ``meta``: every key equal, the engine within one class of
+    ``ENGINE_CLASSES[kind]``."""
+    a, b = dict(written), dict(meta)
+    ea, eb = a.pop("engine", None), b.pop("engine", None)
+    return a == b and (ea == eb or any(ea in c and eb in c for c in ENGINE_CLASSES[kind]))
+
 
 @dataclass
 class DecodeCheckpoint:
@@ -39,17 +74,17 @@ class DecodeCheckpoint:
     _fh: object = None
 
     @classmethod
-    def load_or_create(cls, path: Optional[str], meta: Optional[Dict] = None):
-        """Resume from ``path`` when it exists (validating ``meta`` —
-        resuming with different decode params is an error), else start."""
-        meta = meta or {}
+    def load_or_create(cls, path: Optional[str], meta: Dict, kind: str):
+        """Resume from ``path`` when it exists (validating ``meta`` with
+        ``same_run(..., kind)`` — resuming with different decode params is
+        an error), else start."""
         ckpt = cls(path=path, meta=meta)
         if path is not None and os.path.exists(path):
             with open(path) as f:
                 lines = f.read().splitlines()
             if lines:
                 header = json.loads(lines[0])
-                if meta and header.get("meta") != meta:
+                if not same_run(header.get("meta", {}), meta, kind):
                     raise ValueError(
                         f"checkpoint {path} was written with different decode "
                         f"parameters: {header.get('meta')} != {meta}"

@@ -234,3 +234,21 @@ def test_decode_many_crf_resumes_a_jax_checkpoint(tmp_path):
     assert len(lines) > lines_before  # the port decoded only the rest
     done = [i for line in lines[lines_before:] for i in json.loads(line)["i"]]
     assert sorted(done) == list(range(5, 12))
+
+
+def test_decode_many_crf_resumes_a_jax_auto_checkpoint(tmp_path):
+    # JAX's decode_many_crf writes the engine as given: null for auto; the
+    # port writes the engine it resolves ("fast" here) and still resumes it
+    reads = _crf_reads(10, seed=17)
+    reads[0] = reads[int(np.argmax([r[0].shape[0] for r in reads]))]  # same bucket edges
+    kw = dict(beam_size=5, beam_cut_threshold=0.05, batch_size=4)
+    ckpt = str(tmp_path / "run.jsonl")
+    full = jax_pipeline.decode_many_crf(reads, "NACGT", **kw)
+    jax_pipeline.decode_many_crf(reads[:4], "NACGT", checkpoint_path=ckpt, **kw)
+    with open(ckpt) as f:
+        assert json.loads(f.readline())["meta"]["engine"] is None
+    resumed = port_pipeline.decode_many_crf(reads, "NACGT", device="cpu", checkpoint_path=ckpt, **kw)
+    assert resumed == full
+    with pytest.raises(ValueError, match="different decode"):
+        port_pipeline.decode_many_crf(reads, "NACGT", engine="exact", device="cpu",
+                                      checkpoint_path=ckpt, **kw)

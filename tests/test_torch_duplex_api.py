@@ -11,6 +11,7 @@ keys and values are the JAX package's), finishing with the JAX package's
 results.
 """
 
+import json
 import os
 
 import numpy as np
@@ -174,7 +175,7 @@ def test_auto_engine_routing_on_a_cuda_device(monkeypatch):
     """Auto on a CUDA device, for the batch decoders and the API alike: a
     constant window runs the slot kernel while its shared memory holds the
     band and the tree kernel past it; a moving window the tree kernel; a CRF
-    constant window the plain CRF slot engine.  Past the lanes both kernels
+    constant window the CRF tree kernel.  Past the lanes both kernels
     share (beam * A > 32) the chosen kernel raises.  The callers are handed a
     CUDA device; a spy runs each chosen engine on the CPU tensors, where the
     kernel wrappers check the same bounds before their plain versions."""
@@ -208,13 +209,13 @@ def test_auto_engine_routing_on_a_cuda_device(monkeypatch):
 
     assert route() == "cuda"
     assert route(env=ENV) == "exact"
-    assert route(crf=True) == "fast"
+    assert route(crf=True) == "exact"
     assert route(env=ENV, crf=True) == "exact"
     limit = duplex_cuda.SMEM_LIMIT
     monkeypatch.setattr(duplex_cuda, "SMEM_LIMIT", 8 * 5 * 4 * (T2 + 2) - 4)
     assert route() == "exact"  # the band no longer fits the slot kernel
     assert route(beam=4) == "cuda"
-    assert route(crf=True) == "fast"
+    assert route(crf=True) == "exact"
     monkeypatch.setattr(duplex_cuda, "SMEM_LIMIT", limit)
     with pytest.raises(ValueError, match=r"must be in \[1, 32\] for the duplex CUDA kernel"):
         route(beam=9)
@@ -245,19 +246,113 @@ def test_decode_many_duplex_resumes_a_jax_checkpoint(tmp_path):
     assert all(e == errors.OK for _, e in got)
 
 
+CRF_CONSTANT = [  # (seed, S, A+1, T1, T2, beam, cut, window)
+    (0, 16, 5, 12, 14, 5, 0.0, None),
+    (1, 9, 4, 9, 15, 1, 0.01, (0, 11)),
+    (2, 4, 3, 14, 10, 3, 0.05, None),
+    (3, 16, 5, 10, 13, 8, 0.0, (0, 6)),
+]
+
+
+@pytest.mark.parametrize("case", CRF_CONSTANT, ids=[f"seed{c[0]}" for c in CRF_CONSTANT])
+def test_crf_tree_engine_gives_the_slot_engines_sequences_on_constant_windows(case):
+    """What auto's CRF route on a CUDA device rests on: on constant windows
+    (the full range included) the plain CRF tree engine gives the plain CRF
+    slot engine's sequences and statuses, which are JAX's CRF ``duplex_fast``
+    and tests/oracle.py's."""
+    seed, S, A1, t1, t2, beam, thr, window = case
+    alpha = "NACGT"[:A1]
+    cs = [crf_pair(200 + 10 * seed + i, S=S, A1=A1, t1=t1, t2=t2) for i in range(3)]
+    env = None
+    if window is not None:
+        env = np.stack([np.full(t1, window[0], np.int64), np.full(t1, window[1], np.int64)], 1)
+    stack = [np.stack([c[i] for c in cs]) for i in range(4)]
+    got = {eng: BatchCrfDuplexDecoder(alpha, T1=t1, T2=t2, n_state=S, beam_size=beam,
+                                      beam_cut_threshold=thr, engine=eng, device="cpu"
+                                      ).decode(*stack, envelopes=env)
+           for eng in ("fast", "exact")}
+    assert got["exact"] == got["fast"]
+    for b in range(3):
+        kw = dict(envelope=env, beam_size=beam, beam_cut_threshold=thr)
+        want = jax_api.crf_beam_search_duplex(*cs[b], alpha, engine="fast", **kw)
+        assert got["exact"][b] == (want, errors.OK)
+        assert oracle.crf_beam_search_duplex(*cs[b], alpha, **kw) == want
+
+
+def test_decode_many_duplex_resumes_a_jax_exact_pallas_checkpoint(tmp_path):
+    """JAX names its duplex tree kernel "exact-pallas" (results equal to its
+    "exact" engine); the port's "exact" resumes such a checkpoint, and a slot
+    engine does not."""
+    import json
+
+    rng = np.random.RandomState(7)
+    pairs = []
+    for i in range(5):
+        t1 = 14 if i == 0 else int(rng.randint(5, 15))
+        t2 = 16 if i == 0 else int(rng.randint(6, 17))
+        p1, p2 = pair(60 + i, t1, t2)
+        pairs.append((p1, p2, diag_env(t1, t2, 3)) if i % 2 else (p1, p2))
+    kw = dict(beam_size=5, beam_cut_threshold=0.0, batch_size=8)
+    want = jax_pipeline.decode_many_duplex(pairs, ALPHA, engine="exact", **kw)
+    ckpt = os.path.join(tmp_path, "duplex.jsonl")
+    jax_pipeline.decode_many_duplex(pairs[:2], ALPHA, engine="exact", checkpoint_path=ckpt, **kw)
+    with open(ckpt) as f:
+        lines = f.read().splitlines()
+    head = json.loads(lines[0])
+    head["meta"]["engine"] = "exact-pallas"  # the header as the JAX tree kernel writes it
+    with open(ckpt, "w") as f:
+        f.write("\n".join([json.dumps(head)] + lines[1:]) + "\n")
+    with pytest.raises(ValueError, match="different decode"):
+        decode_many_duplex(pairs, ALPHA, engine="fast", device="cpu", checkpoint_path=ckpt, **kw)
+    got = decode_many_duplex(pairs, ALPHA, engine="exact", device="cpu", checkpoint_path=ckpt, **kw)
+    assert got == want and all(e == errors.OK for _, e in got)
+
+
+@pytest.mark.parametrize("moving", [False, True])
+def test_slot_engine_names_resume_as_one_class_only_on_constant_windows(tmp_path, moving):
+    """A JAX checkpoint of its slot kernel ("pallas") resumes under the port's
+    plain slot engine when every pair's window is constant (full range or a
+    constant envelope), where the slot engines agree; with a moving window
+    in the stream it does not."""
+    rng = np.random.RandomState(8)
+    pairs = []
+    for i in range(4):
+        t1, t2 = (12, 14) if i == 0 else (int(rng.randint(6, 12)), int(rng.randint(8, 14)))
+        p1, p2 = pair(80 + i, t1, t2)  # pair 0 fixes the bucket edges
+        env = np.stack([np.zeros(t1, np.int64), np.full(t1, t2 - 1, np.int64)], 1)
+        pairs.append((p1, p2, diag_env(t1, t2, 3) if moving and i == 3 else env))
+    kw = dict(beam_size=5, beam_cut_threshold=0.0, batch_size=8)
+    ckpt = os.path.join(tmp_path, "duplex.jsonl")
+    jax_pipeline.decode_many_duplex(pairs[:2], ALPHA, engine="fast", checkpoint_path=ckpt, **kw)
+    with open(ckpt) as f:
+        lines = f.read().splitlines()
+    head = json.loads(lines[0])
+    head["meta"]["engine"] = "pallas"
+    with open(ckpt, "w") as f:
+        f.write("\n".join([json.dumps(head)] + lines[1:]) + "\n")
+    if moving:
+        with pytest.raises(ValueError, match="different decode"):
+            decode_many_duplex(pairs, ALPHA, engine="fast", device="cpu", checkpoint_path=ckpt, **kw)
+    else:
+        got = decode_many_duplex(pairs, ALPHA, engine="fast", device="cpu", checkpoint_path=ckpt, **kw)
+        assert got == jax_pipeline.decode_many_duplex(pairs, ALPHA, engine="fast", **kw)
+
+
 @pytest.mark.parametrize("beam,t2_fits", [(8, 894), (5, 1431), (1, 7166)])
 def test_auto_sends_a_constant_window_past_the_slot_kernels_band_bound_to_the_tree(beam, t2_fits):
     """The slot kernel's band bound (8 * K * (T2 + 2) * 4 <= 224 KiB on the
     full range) decides auto's route on a CUDA device to the cell: the widest
     band that fits goes to the slot kernel, one cell more to the tree kernel,
     on the CPU both to the plain slot engine, and a moving window to the tree
-    engine whatever its width."""
+    engine whatever its width.  A CRF constant window goes to the CRF tree
+    kernel on CUDA at any width."""
     for T2n, want in ((t2_fits, "cuda"), (t2_fits + 1, "exact")):
         lo = np.zeros((2, 3), np.int32)
         hi = np.full((2, 3), T2n, np.int32)
         assert duplex_cuda.fits_shared_memory(beam, T2n + 2) == (want == "cuda")
         assert port_pipeline.auto_duplex_engine(lo, hi, "cuda", beam) == want
         assert port_pipeline.auto_duplex_engine(lo, hi, "cpu", beam) == "fast"
-        assert port_pipeline.auto_duplex_engine(lo, hi, "cuda", beam, crf=True) == "fast"
+        assert port_pipeline.auto_duplex_engine(lo, hi, "cuda", beam, crf=True) == "exact"
+        assert port_pipeline.auto_duplex_engine(lo, hi, "cpu", beam, crf=True) == "fast"
         hi[:, 0] = T2n - 1  # the window moves
         assert port_pipeline.auto_duplex_engine(lo, hi, "cuda", beam) == "exact"

@@ -238,6 +238,58 @@ def test_kernel_wrappers_take_the_widest_instance():
     assert list(got["err"]) == [0, 0]
 
 
+@pytest.mark.parametrize("rpb, ok", [(1, True), (4, True), (8, True), (0, False), (9, False),
+                                     (2.0, False), (True, False)])
+def test_reads_per_block_bounds(rpb, ok):
+    """The warp-per-read kernel takes 1..8 reads (warps) a block; the
+    wrappers check that on every device, then run the plain version here."""
+    x = torch.from_numpy(rand_batch(2, 8, 5, 29))
+    lengths = torch.full((2,), 8, dtype=torch.int32)
+    c, init = crf_batch(2, 8, 4, 30)
+    calls = [
+        lambda: beam_exact_cuda.beam_search_exact_kernel_batch(
+            x, lengths, 0.0, beam_size=5, reads_per_block=rpb),
+        lambda: beam_exact_cuda.crf_beam_search_exact_kernel_batch(
+            torch.from_numpy(c), torch.from_numpy(init), lengths, 0.0, beam_size=5,
+            reads_per_block=rpb),
+    ]
+    for call in calls:
+        if ok:
+            assert call()["err"].tolist() == [0, 0]
+        else:
+            with pytest.raises(ValueError, match="reads_per_block"):
+                call()
+
+
+def test_scratch_stride_layout_and_overflow_check():
+    """One read's tree: N int4 records then the (N+1)*A child table, rounded
+    up to whole records (16-byte aligned reads); the byte offsets of B such
+    slabs must fit int64, to the read."""
+    src = open(os.path.join(_build.CSRC, "exact_beam_kernel.cu")).read()
+    assert f"constexpr int kRecWords = {beam_exact_cuda.REC_WORDS};" in src
+    assert f"constexpr int kMaxReadsPerBlock = {beam_exact_cuda.MAX_READS_PER_BLOCK};" in src
+    for N, A in ((1, 1), (7, 4), (20008, 4), (10, 7), (2**31 - 2, 7)):
+        stride = beam_exact_cuda.scratch_stride(N, A)
+        need = 4 * N + (N + 1) * A
+        assert stride % 4 == 0 and need <= stride < need + 4
+    N, A = 2**31 - 2, 7
+    b_max = (2**63 - 1) // (4 * beam_exact_cuda.scratch_stride(N, A))
+    beam_exact_cuda._bounds(b_max, 10, 16, A, N)  # just fits
+    with pytest.raises(ValueError, match="int64"):
+        beam_exact_cuda._bounds(b_max + 1, 10, 16, A, N)
+
+
+def test_exact_probe_quick_runs_on_the_cpu():
+    from fast_ctc_decode_tpu_torch.tools import exact_probe
+
+    rows = exact_probe.main(["--quick", "--device", "cpu"])
+    got = [(r["max_nodes"], r["reads_per_block"]) for _, r in rows]
+    worst = port_beam.default_max_nodes(50, 5, 4)
+    assert got == [(N, 4) for N in exact_probe.BUDGETS] + [(worst, r) for r in (1, 2, 4, 8)]
+    assert all(r["max_err"] in (0, errors.NODE_OVERFLOW) and r["ms"] > 0 for _, r in rows)
+    assert all("host clock" in line for line, _ in rows)  # never a device time
+
+
 def test_kernel_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     # a stand-in nvcc records its command lines and writes its -o output
     bindir = tmp_path / "bin"

@@ -87,6 +87,66 @@ def test_checkpoint_from_jax_resumes_in_port(tmp_path):
     assert json.loads(lines[-1])["i"] == [4, 5, 6, 7]
 
 
+def _set_engine(path, engine):
+    """Rewrite a checkpoint's header engine, as the JAX package writes it
+    for another engine of the same results."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    head = json.loads(lines[0])
+    head["meta"]["engine"] = engine
+    with open(path, "w") as f:
+        f.write("\n".join([json.dumps(head)] + lines[1:]) + "\n")
+
+
+@pytest.mark.parametrize("engine", ["pallas", "fast"])
+def test_jax_checkpoint_of_a_hash_engine_resumes_with_the_default(tmp_path, engine):
+    # JAX's default decode_many writes "fast", its kernel "pallas" (bit-identical
+    # results); the port resumes either with its own default engine
+    reads = [rand_read(t, 5, 20 + i) for i, t in enumerate([30, 11, 30, 24, 8, 30])]
+    ckpt = str(tmp_path / "run.jsonl")
+    kw = dict(beam_size=5, beam_cut_threshold=0.1, batch_size=4, T=30)
+    full = jax_pipeline.decode_many(reads, "NACGT", **kw)
+    jax_pipeline.decode_many(reads[:3], "NACGT", checkpoint_path=ckpt, **kw)
+    _set_engine(ckpt, engine)
+    assert port.decode_many(reads, "NACGT", device="cpu", checkpoint_path=ckpt, **kw) == full
+    with open(ckpt) as f:
+        lines = f.read().splitlines()
+    assert json.loads(lines[0])["meta"]["engine"] == engine
+    assert json.loads(lines[-1])["i"] == [3, 4, 5]  # only the rest was decoded
+
+
+@pytest.mark.parametrize("written, resume", [("exact", None), ("fast", "exact"),
+                                             ("pallas", "exact")])
+def test_checkpoint_across_the_exact_hash_divide_raises(tmp_path, written, resume):
+    reads = [rand_read(20, 5, 30 + i) for i in range(3)]
+    ckpt = str(tmp_path / "run.jsonl")
+    port.decode_many(reads[:1], "NACGT", T=20, engine="fast", device="cpu", checkpoint_path=ckpt)
+    _set_engine(ckpt, written)
+    with pytest.raises(ValueError, match="different decode"):
+        port.decode_many(reads, "NACGT", T=20, engine=resume, device="cpu", checkpoint_path=ckpt)
+
+
+def test_checkpoint_engine_classes():
+    from fast_ctc_decode_tpu_torch.utils.checkpoint import same_run
+
+    meta = {"beam_size": 5, "engine": "cuda"}
+    for name in ("pallas", "cuda", "fast", None):
+        assert same_run({"beam_size": 5, "engine": name}, meta, "beam")
+    assert same_run({"beam_size": 5}, meta, "beam")  # a missing engine is auto
+    assert not same_run({"beam_size": 5, "engine": "exact"}, meta, "beam")
+    assert not same_run({"beam_size": 4, "engine": "cuda"}, meta, "beam")  # other keys exact
+    dup = {"duplex": True, "engine": "exact"}
+    assert same_run({"duplex": True, "engine": "exact-pallas"}, dup, "duplex")
+    assert same_run({"duplex": True, "engine": "exact-pallas"}, dup, "duplex_moving")
+    assert not same_run({"duplex": True, "engine": None}, dup, "duplex")
+    assert not same_run({"duplex": True, "engine": "fast"}, dup, "duplex")
+    slot = {"duplex": True, "engine": "cuda"}
+    assert same_run({"duplex": True, "engine": "pallas"}, slot, "duplex")
+    assert same_run({"duplex": True, "engine": "fast"}, slot, "duplex")
+    assert not same_run({"duplex": True, "engine": "fast"}, slot, "duplex_moving")
+    assert not same_run({"duplex": True, "engine": None}, slot, "duplex")
+
+
 def test_checkpoint_meta_mismatch_raises(tmp_path):
     reads = [rand_read(20, 5, i) for i in range(3)]
     ckpt = str(tmp_path / "run.jsonl")
@@ -150,6 +210,8 @@ def test_port_imports_no_jax():
         "from fast_ctc_decode_tpu_torch import api\n"
         "from fast_ctc_decode_tpu_torch.ops import beam, crf, viterbi, beam_exact_cuda\n"
         "from fast_ctc_decode_tpu_torch.ops import duplex, duplex_fast, duplex_cuda, duplex_exact_cuda\n"
+        "from fast_ctc_decode_tpu_torch.ops import viterbi_cuda\n"
+        "from fast_ctc_decode_tpu_torch.tools import exact_probe\n"
         "from fast_ctc_decode_tpu_torch.parallel import pipeline\n"
         "c = np.random.RandomState(1).rand(12, 4, 5).astype(np.float32)\n"
         "s = np.full((4,), 0.25, np.float32)\n"

@@ -82,6 +82,75 @@ def test_viterbi_device_batch_equals_jax(collapse):
     assert np.array_equal(got["qints"].numpy(), want["qints"].astype(np.int64))
 
 
+def long_run_batch(B, T, seed, run=(20, 60)):
+    """Posteriors whose argmax keeps one label for long stretches (collapsed
+    runs of 20-60 frames) with blank frames sprinkled in, ragged lengths."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(B, T, 5).astype(np.float32) * 0.2
+    for b in range(B):
+        t = 0
+        while t < T:
+            n = rng.randint(*run)
+            x[b, t:t + n, rng.randint(1, 5)] += 1.0
+            t += n
+        x[b, rng.rand(T) < 0.1, 0] += 2.0  # a blank inside a run does not end it
+    return x / np.linalg.norm(x, ord=2, axis=-1, keepdims=True), ragged_lengths(B, T, seed + 1)
+
+
+def sequential_run_means(labels, pmax, seg):
+    """Each segment's f32 sum of non-blank frames added left to right from 0,
+    over its non-blank count (at least 1): the reference's order."""
+    B, T = labels.shape
+    out = np.zeros((B, T), np.float32)
+    for b in range(B):
+        sums = np.zeros(T, np.float32)
+        cnts = np.zeros(T, np.float32)
+        for t in range(T):
+            g = max(int(seg[b, t]), 0)
+            if labels[b, t] != 0:
+                sums[g] = np.float32(sums[g] + pmax[b, t])
+                cnts[g] = np.float32(cnts[g] + np.float32(1.0))
+        out[b] = sums / np.maximum(cnts, np.float32(1.0))
+    return out
+
+
+@pytest.mark.parametrize("collapse", [True, False])
+def test_run_means_add_in_frame_order(collapse):
+    """``viterbi_cuda.run_means`` (the CUDA kernel's plain version on the
+    CPU) sums every run left to right, bit for bit: equal to a sequential
+    f32 loop and to JAX's ``segment_sum`` on ragged reads with long collapsed
+    runs.  (``np.add.reduceat`` is no reference for this: it does not add an
+    f32 run left to right once the run has 3 or more terms.)"""
+    from fast_ctc_decode_tpu_torch.ops import viterbi_cuda
+
+    x, lengths = long_run_batch(6, 300, 11)
+    labels, pmax, emit, seg = port_viterbi.frame_runs(
+        torch.from_numpy(x), torch.from_numpy(lengths), collapse_repeats=collapse)
+    got = viterbi_cuda.run_means(labels, pmax, *port_viterbi.emit_path(emit, seg)).numpy()
+    L, Pm, S = labels.numpy(), pmax.numpy(), seg.numpy()
+    want = sequential_run_means(L, Pm, S)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    nz = L != 0
+    for b in range(L.shape[0]):
+        contrib = np.where(nz[b], Pm[b], np.float32(0))
+        g = np.maximum(S[b], 0)
+        sums = np.asarray(jax.ops.segment_sum(contrib, g, num_segments=L.shape[1]))
+        cnts = np.asarray(jax.ops.segment_sum(nz[b].astype(np.float32), g, num_segments=L.shape[1]))
+        assert np.array_equal(got[b].view(np.int32),
+                              (sums / np.maximum(cnts, np.float32(1))).view(np.int32))
+    assert int((L != 0).sum(1).max()) > 100  # long runs were there to sum
+
+
+def test_viterbi_qints_equal_jax_on_long_runs():
+    x, lengths = long_run_batch(5, 240, 21)
+    fn = jax.vmap(lambda p, n: jax_viterbi.viterbi_device(p, n, np.float32(1.0), np.float32(0.0)))
+    want = {k: np.asarray(v) for k, v in fn(x, lengths).items()}
+    got = port_viterbi.viterbi_device_batch(torch.from_numpy(x), torch.from_numpy(lengths), 1.0, 0.0)
+    for k in ("tokens", "path", "n"):
+        assert np.array_equal(got[k].numpy(), want[k]), k
+    assert np.array_equal(got["qints"].numpy(), want["qints"].astype(np.int64))
+
+
 @pytest.mark.parametrize("qstring", [False, True])
 def test_batch_viterbi_decoder_equals_jax(qstring):
     B, T = 8, 40
