@@ -5,17 +5,31 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+or, to time the hash beam kernels (rows 1, 3, 4, 5 and 10, and row 1's
+wide instance) beside a parent commit's kernels in the same run, with the
+parent's package unpacked in DIR (``git archive <commit>
+fast_ctc_decode_tpu_torch | tar -x -C DIR``), imported under another name and
+driven through its own wrappers (``ops/beam_cuda.py``,
+``tools/kernel_ablate.py``), which build its kernels there:
+
+    python3 chip_smoke.py --parent DIR
+
 Phases, each of which raises on failure (exit code non-zero):
   1. builds the CUDA kernels from ``fast_ctc_decode_tpu_torch/csrc`` with nvcc
      (sm_90a, one compiler per source, all at once) and prints the card, the
      versions, the build time, ptxas's register/spill lines and, for the two
-     duplex kernels and both instances of the exact tree kernel, block size,
-     shared memory and blocks per SM;
+     duplex kernels and both instances of the exact tree and warp beam
+     kernels, block size, shared memory and blocks per SM (with ``--parent``:
+     the parent's kernels built too, and the hash beam instances' registers
+     beside the parent's);
   2. holds each 1D kernel against its plain PyTorch version on the card, bit
-     for bit: the three versions of the beam kernel (1, 2 = the default, 3)
-     and the traceback, on the shapes of the CPU tests (a +-inf/NaN batch,
-     -0.0, zero lengths, beams 1/8/12/16, A+1 = 8) and at B=1024, T=1000;
-  2b. the same for the CRF beam kernel and the exact tree kernel (1D and
+     for bit: the beam kernel's versions 1 and 3, version 2 in both designs
+     (one thread per read; one warp per read at 1, 2, 4 or 8 reads a block
+     in turn) and the traceback, on the shapes of the CPU tests (a
+     +-inf/NaN batch, -0.0, zero lengths, beams 1/8/12/16, A+1 = 8) and at
+     B=1024, T=1000;
+  2b. the same for the CRF beam kernel (one warp per read, every case at 1,
+     2, 4 and 8 reads a block) and the exact tree kernel (1D and
      CRF, random bits in the tree kernel's scratch memory): NaN, empty
      beams, zero lengths, overflow through a small ``max_nodes``, -0.0
      entries, beams 8/16, S = 9, B = 1 and B = 33 (a partial block of the
@@ -26,11 +40,22 @@ Phases, each of which raises on failure (exit code non-zero):
   3. drives the main path, ``BatchBeamDecoder("NACGT", T=1000, beam_size=5,
      beam_cut_threshold=0.1, device="cuda")``, on B=32768 reads made from a
      seed, with every status OK, 8 sampled reads equal to tests/oracle.py,
-     and both kernels' launch counters grown;
+     and both kernels' launch counters grown (the beam kernel in the
+     design the batch size routes to: one thread per read at B=32768);
   4. resumes ``decode_many`` from a checkpoint over ~2,000 mixed-length
-     reads and checks the result against an uninterrupted run;
-  5. times both kernels, ``decode_arrays``, ``decode`` and the plain engine
-     at B=32768, T=1000 (CUDA-synchronised medians of 5 runs);
+     reads (batches of at most 256: the warp design, whose counter must
+     grow) and checks the result against an uninterrupted run;
+  5. holds the beam kernel to the plain version on the main path's inputs
+     (B=32768, T=1000) in both designs, and its wide instance (one thread
+     per read, beam 16, A+1 = 8; and one warp per read) on inputs of that
+     width, bit for bit; times both kernels (the beam kernel in both designs,
+     its wide instance in both),
+     ``decode_arrays``, ``decode`` and the plain engine there
+     (CUDA-synchronised medians of 5 runs); with ``--parent``, rows 1 (both
+     instances), 3, 4 and 10 beside the parent's kernels in turns (parent,
+     new, new, parent) after checking equal outputs; then
+     ``tools.kernel_probe`` (the main path's stages, both designs at B = 1
+     ... 32768, the warp design at 1-8 reads a block);
   6. drives the paths of the single-read API and the CRF family at full
      width: ``BatchBeamDecoder(engine="exact")`` (T=1000, B=1024),
      ``BatchCrfBeamDecoder`` with the CUDA engine (T=400, S=64, B=1024) and
@@ -42,10 +67,13 @@ Phases, each of which raises on failure (exit code non-zero):
      kernel); ``api.beam_search`` / ``api.crf_beam_search`` on the card
      equal to the batch results, and one read of each timed (T=1000; T=400,
      S=64); ``decode_many_crf`` resumed from a checkpoint equal to an
-     uninterrupted run; ``tools.exact_probe`` at B=1024 (budgets and reads
-     per block);
-  7. times the new kernels against their plain versions (CUDA events) and
-     the new decoders' ``decode_arrays`` / ``decode`` (wall), medians of 5;
+     uninterrupted run; ``api.beam_search(engine="fast")`` on the card (the
+     warp design at B=1) equal to the batch sequences; ``tools.exact_probe``
+     at B=1024 (budgets and reads per block);
+  7. times the new kernels against their plain versions (CUDA events), the
+     CRF beam kernel at 1, 2, 4 and 8 reads a block (with ``--parent``: beside
+     the parent's CRF kernel in turns), and the new decoders'
+     ``decode_arrays`` / ``decode`` (wall), medians of 5;
   8. checks the duplex kernels' straight-line exp / log1p against the CUDA
      math library on all 2^32 float arguments, then holds the duplex slot
      kernel and the exact duplex tree kernel (plain and CRF) to their plain
@@ -76,7 +104,9 @@ Phases, each of which raises on failure (exit code non-zero):
   12. times each duplex kernel beside its plain version on the same
      full-width shape (CUDA events; the plain versions once, they take
      tens of seconds) and the duplex decoders' ``decode_arrays`` / ``decode``,
-     and holds the full-width kernel outputs to the plain ones;
+     the CRF tree kernel's launches on the constant-window full range alone
+     (CUDA events around each launch inside ``decode``, summed), and holds
+     the full-width kernel outputs to the plain ones;
   13. the A/B path (``tools.ab_bench``) at B=32768, T=1000: versions 1, 2
      and 3 equal on all four fields, each launched; each version's kernel
      and full pipeline timed, and ``BatchBeamDecoder.decode`` (version 2);
@@ -103,6 +133,7 @@ outside the repository, it exits non-zero and prints no result.
 import json
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -114,6 +145,7 @@ import numpy as np
 
 ALPHABET = "NACGT"
 B_MAIN, T_MAIN, BEAM, THR = 32768, 1000, 5, 0.1
+WIDE_BEAM, WIDE_A1 = 16, 8  # version 2's wide instance <16, 7> at B_MAIN, T_MAIN
 B_EXACT = 1024  # exact 1D at T_MAIN
 T_CRF, S_CRF, B_CRF, B_CRF_EXACT = 400, 64, 1024, 256
 B_VITERBI = 8192  # viterbi at T_MAIN
@@ -235,8 +267,176 @@ def duplex_bound(inp, K, A, *, tree):
     return bound(nbytes, cells * (K + K * A) * 10)
 
 
-def parity_cases():
-    """(name, probs, lengths, thr, beam_size, collapse): the CPU tests' shapes."""
+# ---- the hash beam kernels' ptxas lines, and the parent commit's kernels ----
+
+BEAM_ENTRY = re.compile(r"beam_ids_kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?Li(\d)ELi(\d+)E")
+WARP_ENTRY = re.compile(r"beam_warp_kernelILi(\d+)ELi(\d+)ELb([01])E")
+
+
+def parse_ptxas(build_log):
+    """{entry function: (registers, spill bytes stored + loaded)} from nvcc's
+    ``-Xptxas -v`` lines."""
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = [None, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def beam_kernel_registers(build_log):
+    """{instance: (registers, spill bytes)} of the hash beam kernels: the
+    thread-per-read body by (KMAX, AMAX, version, ablation mask; the parent's
+    CRF instances marked), the warp-per-read kernel by (KMAX, AMAX, CRF)."""
+    regs = {}
+    for entry, val in parse_ptxas(build_log).items():
+        m = BEAM_ENTRY.search(entry)
+        if m:
+            kmax, amax, crf, v, abl = m.groups()
+            name = f"beam_ids_kernel<{kmax}, {amax}>{' CRF' if crf == '1' else ''} v{v}"
+            regs[name + (f" ablate {abl}" if abl != "0" else "")] = val
+        m = WARP_ENTRY.search(entry)
+        if m:
+            kmax, amax, crf = m.groups()
+            regs[f"beam_warp_kernel<{kmax}, {amax}>{' CRF' if crf == '1' else ''}"] = val
+    return regs
+
+
+def beam_launch_shapes(build_log, parent_log=None):
+    """Log the hash beam kernels' registers and spills, the warp kernel's
+    blocks per SM, and, given the parent commit's build log, whether the
+    first-design instances (versions 1 and 3, the ablation sets) kept the
+    parent's registers.  Returns {instance: (registers, spills)}."""
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda
+
+    regs = beam_kernel_registers(build_log)
+    for name, (r, sp) in sorted(regs.items()):
+        log(f"ptxas {name}: {r} registers, {sp} bytes spilled")
+    rpb = beam_cuda.READS_PER_BLOCK
+    for K, A, what in ((BEAM, len(ALPHABET) - 1, "<5, 4>"), (16, 7, "<16, 7>")):
+        for crf in (False, True):
+            blocks = beam_cuda.warp_blocks_per_sm(K, A, crf=crf, reads_per_block=rpb)
+            log(f"beam_warp_kernel{what}{' CRF' if crf else ''}: block {32 * rpb} threads "
+                f"({rpb} reads, one warp each), {blocks} blocks per SM "
+                f"({blocks * rpb} reads per SM)")
+    if parent_log is not None:
+        old = beam_kernel_registers(parent_log)
+        for name, (r, sp) in sorted(old.items()):
+            now = regs.get(name)
+            log(f"ptxas parent {name}: {r} registers, {sp} bytes spilled; this tree: "
+                f"{'gone' if now is None else f'{now[0]} registers, {now[1]} bytes spilled'}"
+                f"{' (equal)' if now == (r, sp) else ''}")
+    return regs
+
+
+def beam_counter(design):
+    """The launch counter of a version-2 design."""
+    return "beam" if design == "thread" else "beam_warp"
+
+
+def parent_package(parent_dir, name="parent_fast_ctc_decode_tpu_torch"):
+    """The parent commit's package from ``DIR/fast_ctc_decode_tpu_torch``,
+    imported under another name (its modules import each other relatively),
+    so that its own wrappers build and launch its kernels (into its own
+    ``_build`` directory) beside this tree's.  Returns its ``ops.beam_cuda``,
+    ``ops._build`` and ``tools.kernel_ablate``."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(parent_dir, "fast_ctc_decode_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return types.SimpleNamespace(**{
+        short: importlib.import_module(f"{name}.{path}")
+        for short, path in (("beam_cuda", "ops.beam_cuda"), ("build", "ops._build"),
+                            ("kernel_ablate", "tools.kernel_ablate"))})
+
+
+def turns_ms(torch, parent_fn, new_fn, same):
+    """Time the parent's kernel and this tree's in turns (parent, new, new,
+    parent; each a median of REPEATS CUDA-event runs), after checking that
+    both give the same outputs (``same``).  Returns (parent_ms, new_ms), each
+    the mean of its two medians, and the four medians."""
+    if not same(parent_fn(), new_fn()):
+        raise AssertionError("this tree's kernel and the parent's give different outputs")
+    order = (parent_fn, new_fn, new_fn, parent_fn)
+    t = [median_event_ms(fn, torch) for fn in order]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def parent_turns(torch, smi, parent, probs, lengths, wide):
+    """Rows 1, 3, 4 and 10 and version 2's wide instance beside the parent's
+    kernels on the same inputs, through each tree's own wrappers (``parent``
+    from ``parent_package``): {row: (parent ms, this tree's ms)}."""
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda
+    from fast_ctc_decode_tpu_torch.tools import kernel_ablate
+
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    B, T = probs.shape[:2]
+    half = slice(0, B // 2)  # the ablation tool's B=16384
+    pa, la = probs[half].contiguous(), lengths[half].contiguous()
+    shape = f"B={B} T={T}"
+    rows = [
+        ("row 1 beam v2", shape, lambda m: m.beam_ids_kernel(probs, lengths, THR, beam_size=BEAM)),
+        ("row 1 beam v2 <16, 7>", f"beam {WIDE_BEAM} A+1={WIDE_A1} {shape}",
+         lambda m: m.beam_ids_kernel(wide, lengths, THR, beam_size=WIDE_BEAM)),
+        ("row 3 beam v1", shape, lambda m: m.beam_ids_kernel(
+            probs, lengths, THR, beam_size=BEAM, version=1)),
+        ("row 4 beam v3", shape, lambda m: m.beam_ids_kernel(
+            probs, lengths, THR, beam_size=BEAM, version=3)),
+        ("row 10 ablation", f"kernel (no phase stubbed) B={B // 2} T={T}",
+         lambda m: tuple(m.run_ablate(pa, la, THR, beam_size=BEAM).values())),
+    ]
+    out = {}
+    for name, where, fn in rows:
+        mods = (parent.kernel_ablate, kernel_ablate) if name == "row 10 ablation" else (
+            parent.beam_cuda, beam_cuda)
+        old, new, t = turns_ms(torch, lambda: fn(mods[0]), lambda: fn(mods[1]), same)
+        out[name] = (old, new)
+        log(f"time {name} {where}: parent {old!r} ms, this tree {new!r} ms "
+            f"(turns parent/new/new/parent: {', '.join(f'{x:.3f}' for x in t)}) [{smi}]")
+    return out
+
+
+def launch_event_ms(torch, module, name, run):
+    """Run ``run()`` once with ``module.name`` wrapped between two CUDA events
+    per call: (summed device ms between the events, calls).  Host work
+    between the calls is not counted."""
+    real = getattr(module, name)
+    marks = []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks), len(marks)
+
+
+def parity_cases(full_width=True):
+    """(name, probs, lengths, thr, beam_size, collapse): the CPU tests'
+    shapes, then (``full_width``) B=1024 at T=1000."""
     nan_probs = make_reads(3, 20, 5, 4)
     nan_probs[1, 5, 2] = np.nan
     nan_probs[2] = 0.01  # all under the cut
@@ -261,6 +461,8 @@ def parity_cases():
     cases.append(("beam1", make_reads(3, 30, 5, 15), [30, 12, 30], 0.05, 1, True))
     cases.append(("A1=8", make_reads(3, 30, 8, 12), [30, 17, 30], 0.05, 5, True))
     cases.append(("A1=8_beam16", make_reads(3, 30, 8, 13), [30, 17, 30], 0.0, 16, True))
+    if not full_width:
+        return cases
     rng = np.random.RandomState(11)
     cases.append(
         ("B1024_T1000", make_reads(1024, 1000, 5, 7),
@@ -313,9 +515,10 @@ def exact_cases():
     return cases
 
 
-def crf_cases():
+def crf_cases(full_width=True):
     """(name, probs, init, lengths, thr, beam_size, max_nodes) for the CRF
-    kernels (the CRF beam kernel ignores max_nodes)."""
+    kernels (the CRF beam kernel ignores max_nodes); the last
+    (``full_width``) at the CRF path's B, T and S."""
     def crf(B, T, S, seed, A1=5, Si=None):
         p, init = make_crf_reads(B, T, S, A1, seed)
         if Si is not None:
@@ -350,6 +553,8 @@ def crf_cases():
         ("zero_length_in_block", *crf(8, 20, 16, 40), [20, 0, 20, 20, 0, 20, 20, 20],
          0.1, 5, None),
     ]
+    if not full_width:
+        return cases
     rng = np.random.RandomState(33)
     cases.append(
         (f"B{B_CRF}_T{T_CRF}_S{S_CRF}", *make_crf_reads(B_CRF, T_CRF, S_CRF, 5, 34),
@@ -890,6 +1095,15 @@ def duplex_phases(torch, dev, smi, log_counts):
     }
     for name, t in dec_ms.items():
         log(f"time duplex {name} {shape}: {t!r} ms ({B_DUP / (t / 1e3):.1f} pairs/s) [{smi}]")
+    # the CRF tree kernel's launches alone on the full range (events around each)
+    from fast_ctc_decode_tpu_torch.ops import duplex_exact_cuda
+
+    cfull = [launch_event_ms(torch, duplex_exact_cuda, "duplex_exact_kernel_batch",
+                             lambda: crf_dec.decode(c1, i1, c2, i2)) for _ in range(3)]
+    cfull_ms = statistics.median(t for t, _ in cfull)
+    log(f"time duplex CRF auto full range {shape} S={S_DUP}, the CRF tree kernel's "
+        f"{cfull[0][1]} launches alone (CUDA events around each, summed): median of 3 "
+        f"{cfull_ms!r} ms (each: {', '.join(f'{t:.3f}' for t, _ in cfull)}) [{smi}]")
 
     src = "fast_ctc_decode_tpu_torch/csrc/"
     return [
@@ -909,6 +1123,7 @@ def duplex_phases(torch, dev, smi, log_counts):
          "bound_ms": bounds["tree"][0], "bound_by": bounds["tree"][1], "library_ms": None,
          "crf_launches": l_cdiag["duplex_exact_crf"],
          "crf_full_range_launches": res["launches"]["crf_full"]["duplex_exact_crf"],
+         "crf_full_range_ms": cfull_ms,
          "crf_ms": rows["tree crf"][0], "crf_plain_ms": rows["tree crf"][1]},
     ]
 
@@ -1006,6 +1221,7 @@ def serving_phase(torch, dev, smi, oracle, counts, reset_counts):
     import threading
 
     from fast_ctc_decode_tpu_torch import BatchBeamDecoder, BatchViterbiDecoder, api, serve
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda
     from fast_ctc_decode_tpu_torch.parallel import mesh, pipeline
 
     httpd = serve.make_http_server("127.0.0.1", 0, microbatch=True, device="cuda")
@@ -1036,7 +1252,8 @@ def serving_phase(torch, dev, smi, oracle, counts, reset_counts):
         reset_counts()
         status, out, batch_s = post(body)
         launched = counts()
-        if status != 200 or launched["beam"] < 1 or launched["traceback"] < 1:
+        if (status != 200 or launched[beam_counter(beam_cuda.design_for(Bs))] < 1
+                or launched["traceback"] < 1):
             raise AssertionError(f"serve batch beam request: status {status}, launches {launched}")
         want = BatchBeamDecoder(ALPHABET, T=T_MAIN, beam_size=BEAM, beam_cut_threshold=THR,
                                 device="cuda").decode(sp, np.full(Bs, T_MAIN, np.int32))
@@ -1101,7 +1318,7 @@ def serving_phase(torch, dev, smi, oracle, counts, reset_counts):
             if status != 200 or r["seq"] != api.beam_search(x, ALPHABET, BEAM, THR,
                                                             device="cuda")[0]:
                 raise AssertionError(f"serve: single read {i} differs from api.beam_search")
-        if not batches < n or launched["beam"] < 1:
+        if not batches < n or launched["beam"] + launched["beam_warp"] < 1:
             raise AssertionError(f"serve: {batches} batches for {n} reads, launches {launched}")
         lat = np.array([r[2] for r in results[:n]]) * 1e3
         log(f"serve: {n} concurrent single reads (T {lens.min()}-{lens.max()}, bucket 1024) "
@@ -1152,8 +1369,9 @@ def exact_launch_shapes(build_log):
 def exact_parity_phase(torch, dev):
     """Phase 2b: the CRF beam kernel and the exact tree kernel (1D and CRF)
     against their plain versions, bit for bit, with random bits in the tree
-    kernel's scratch; the small cases at 1, 2, 4 or 8 reads a block in turn,
-    the full-width ones at the default.  Returns (err_crf, err_exact,
+    kernel's scratch; the CRF beam kernel at 1, 2, 4 and 8 reads a block on
+    every case, the tree kernel's small cases at 1, 2, 4 or 8 in turn and
+    its full-width ones at the default.  Returns (err_crf, err_exact,
     err_exact_crf): 0, or it raised."""
     from fast_ctc_decode_tpu_torch.ops import beam_cuda, beam_exact_cuda, beam_fast
     from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
@@ -1181,9 +1399,11 @@ def exact_parity_phase(torch, dev):
         p = torch.from_numpy(probs).to(dev)
         ini = torch.from_numpy(init).to(dev)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        ids_k = beam_cuda.crf_beam_ids_kernel(p, ini, ln, thr, beam_size=K)
         ids_p = beam_cuda.crf_beam_ids_plain(p, ini, ln, thr, beam_size=K)
-        d_ids = max(max_abs_diff(x, y) for x, y in zip(ids_k, ids_p))
+        d_ids = 0
+        for r in (1, 2, 4, 8):  # the CRF beam kernel at every reads-per-block
+            ids_k = beam_cuda.crf_beam_ids_kernel(p, ini, ln, thr, beam_size=K, reads_per_block=r)
+            d_ids = max(d_ids, *(max_abs_diff(x, y) for x, y in zip(ids_k, ids_p)))
         got = beam_cuda.crf_beam_search_kernel_batch(p, ini, ln, thr, beam_size=K)
         want = beam_fast.crf_beam_search_fast_batch(p, ini, ln, thr, beam_size=K)
         d_crf = max(d_ids, max(max_abs_diff(got[f], want[f]) for f in FIELDS))
@@ -1197,7 +1417,8 @@ def exact_parity_phase(torch, dev):
             p, ini, ln, thr, beam_size=K, max_nodes=N)
         d_ex = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
         torch.cuda.synchronize()
-        log(f"parity crf {name} (exact: B={p.shape[0]}, {rpb} reads a block): beam max_abs_err "
+        log(f"parity crf {name} (CRF beam: 1, 2, 4, 8 reads a block; exact: B={p.shape[0]}, "
+            f"{rpb} reads a block): beam max_abs_err "
             f"{d_crf}, exact {d_ex}, err codes {sorted(set(ids_k[2].tolist()))} / "
             f"{sorted(set(got['err'].tolist()))}")
         if d_crf or d_ex:
@@ -1225,9 +1446,16 @@ def single_read_times(torch, smi, probs, crf_probs, crf_init):
     return ms
 
 
-def main():
+def main(argv=None):
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    parent_dir = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent_dir = os.path.abspath(argv[1])
+    elif argv:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -1242,7 +1470,7 @@ def main():
     from fast_ctc_decode_tpu_torch.ops import beam_exact_cuda, duplex_cuda, duplex_exact_cuda
     from fast_ctc_decode_tpu_torch.ops import viterbi as viterbi_ops
     from fast_ctc_decode_tpu_torch.ops import viterbi_cuda
-    from fast_ctc_decode_tpu_torch.tools import exact_probe
+    from fast_ctc_decode_tpu_torch.tools import exact_probe, kernel_probe
     from fast_ctc_decode_tpu_torch.utils import profiling
 
     run_t0 = time.perf_counter()
@@ -1266,13 +1494,23 @@ def main():
             log(f"ptxas: {line.strip()}")
     duplex_launch_shapes(build.log)
     exact_launch_shapes(build.log)
+    parent = parent_log = None
+    if parent_dir is not None:
+        t0 = time.perf_counter()
+        parent = parent_package(parent_dir)
+        parent_log = parent.build.build().log
+        parent.build.load_library()
+        log(f"parent kernels from {parent_dir}: built in {time.perf_counter() - t0:.2f} s")
+    beam_regs = beam_launch_shapes(build.log, parent_log)
 
     # ---- phase 2: kernel vs plain, bit for bit, on the card ----
-    # every version of the beam kernel (1, 2 = the default, 3) against the
-    # one plain function they compute
-    err_beam = {1: 0, 2: 0, 3: 0}
+    # every version of the beam kernel (1, 2 in both designs, 3) against the
+    # one plain function they compute; the warp design at 1, 2, 4, 8 reads
+    # a block in turn
+    err_beam = {1: 0, "thread": 0, "warp": 0, 3: 0}
     err_tb = 0
-    for name, probs, lengths, thr, K, collapse in parity_cases():
+    runs = ((1, None), (2, "thread"), (2, "warp"), (3, None))
+    for i, (name, probs, lengths, thr, K, collapse) in enumerate(parity_cases()):
         p = torch.from_numpy(probs).to(dev)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
         ids_p, fin_p, e_p = beam_cuda.beam_ids_plain(
@@ -1280,28 +1518,31 @@ def main():
         want = beam_fast.beam_search_fast_batch(
             p, ln, thr, beam_size=K, collapse_repeats=collapse)
         T, A = probs.shape[1], probs.shape[2] - 1
+        rpb = (1, 2, 4, 8)[i % 4]
         msg = []
-        for v in (1, 2, 3):
+        for v, design in runs:
             ids_k, fin_k, e_k = beam_cuda.beam_ids_kernel(
-                p, ln, thr, beam_size=K, collapse_repeats=collapse, version=v)
+                p, ln, thr, beam_size=K, collapse_repeats=collapse, version=v, design=design,
+                reads_per_block=rpb)
             d_beam = max(max_abs_diff(ids_k, ids_p), max_abs_diff(fin_k, fin_p),
                          max_abs_diff(e_k, e_p))
             got = beam_cuda.beam_search_kernel_batch(
-                p, ln, thr, beam_size=K, collapse_repeats=collapse, version=v)
+                p, ln, thr, beam_size=K, collapse_repeats=collapse, version=v, design=design)
             d_all = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
-            if v == 2:
+            if design == "thread":
                 tb_k = beam_cuda.traceback_kernel(fin_k, ids_k, T=T, K=K, A=A)
                 tb_p = beam_cuda.traceback_plain(fin_k, ids_k, T=T, K=K, A=A)
                 d_tb = max(max_abs_diff(x, y) for x, y in zip(tb_k, tb_p))
                 err_tb = max(err_tb, d_tb, d_all)
                 msg.append(f"traceback {d_tb}")
             torch.cuda.synchronize()
-            msg.append(f"v{v} beam {d_beam} dict {d_all}")
+            key = design or v
+            msg.append(f"{'v2 ' + design if design else f'v{v}'} beam {d_beam} dict {d_all}")
             if d_beam or d_all or err_tb:
-                raise AssertionError(f"kernel (version {v}) != plain on case {name}")
-            err_beam[v] = max(err_beam[v], d_beam, d_all)
-        log(f"parity {name}: max_abs_err {', '.join(msg)}, err codes "
-            f"{sorted(set(e_p.tolist()))}")
+                raise AssertionError(f"kernel (version {v}, {design}) != plain on case {name}")
+            err_beam[key] = max(err_beam[key], d_beam, d_all)
+        log(f"parity {name} (warp design: {rpb} reads a block): max_abs_err {', '.join(msg)}, "
+            f"err codes {sorted(set(e_p.tolist()))}")
 
     # ---- phase 2b: CRF beam and exact tree kernels vs plain, bit for bit ----
     err_crf, err_exact, err_exact_crf = exact_parity_phase(torch, dev)
@@ -1320,11 +1561,12 @@ def main():
     t0 = time.perf_counter()
     res = dec.decode(probs_d, lengths_d)
     main_s = time.perf_counter() - t0
-    launches = {k: beam_cuda.launches[k] for k in ("beam", "traceback")}
+    main_design = beam_cuda.design_for(B_MAIN)
+    launches = {k: beam_cuda.launches[k] for k in ("beam", "beam_warp", "traceback")}
     log(f"main path: {B_MAIN} reads decoded in {main_s:.3f} s (first call), "
-        f"launches {launches}, peak device memory "
+        f"launches {launches} (version 2, {main_design} design), peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
-    if min(launches.values()) < 1:
+    if launches[beam_counter(main_design)] < 1 or launches["traceback"] < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if len(res) != B_MAIN or any(r[2] != 0 for r in res):
         raise AssertionError("main path: status codes not all OK")
@@ -1351,9 +1593,13 @@ def main():
     reads = [make_reads(1, int(n), len(ALPHABET), 1000 + i)[0] for i, n in enumerate(lens)]
     kw = dict(beam_size=BEAM, beam_cut_threshold=THR, device="cuda",
               bucket_edges=[128, 256, 512, 1024, 2048, 4096])
+    beam_cuda.reset_launches()
     t0 = time.perf_counter()
     full = decode_many(reads, ALPHABET, **kw)
     full_s = time.perf_counter() - t0
+    many_launches = dict(beam_cuda.launches)
+    if many_launches["beam_warp"] < 1:  # batches of at most 256 reads: the warp design
+        raise AssertionError(f"decode_many: the warp design never launched: {many_launches}")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "run.jsonl")
         half = decode_many(reads[:1000], ALPHABET, checkpoint_path=ckpt, **kw)
@@ -1367,13 +1613,45 @@ def main():
     if any(r[2] != 0 for r in full):
         raise AssertionError("decode_many: status codes not all OK")
     log(f"decode_many: {len(reads)} reads, lengths {lens.min()}-{lens.max()}, "
-        f"{full_s:.3f} s uninterrupted; resumed run equals it")
+        f"{full_s:.3f} s uninterrupted (launches {many_launches}); resumed run equals it")
 
-    # ---- phase 5: times at B=32768, T=1000 ----
-    ids_log, fin, _ = beam_cuda.beam_ids_kernel(probs_d, lengths_d, THR, beam_size=BEAM)
+    # ---- phase 5: the main path's inputs through both designs, then times ----
+    # version 2 in the design B=32768 routes to and forced to the other, held
+    # to the plain version bit for bit; then the wide instance (beam 16, A+1 =
+    # 8) the same way on its own inputs
+    plain_main = beam_cuda.beam_ids_plain(probs_d, lengths_d, THR, beam_size=BEAM)
+    ids_log, fin, err_main = beam_cuda.beam_ids_kernel(probs_d, lengths_d, THR, beam_size=BEAM)
+    other = "warp" if main_design == "thread" else "thread"
+    forced = beam_cuda.beam_ids_kernel(probs_d, lengths_d, THR, beam_size=BEAM, design=other)
+    err_main_b = {
+        main_design: max(max_abs_diff(x, y) for x, y in zip((ids_log, fin, err_main), plain_main)),
+        other: max(max_abs_diff(x, y) for x, y in zip(forced, plain_main)),
+    }
+    log(f"main path inputs B={B_MAIN} T={T_MAIN}: max_abs_err against the plain version "
+        f"{err_main_b} (ids_log, fin, err)")
+    if any(err_main_b.values()):
+        raise AssertionError(f"beam kernel != plain on the main path's inputs: {err_main_b}")
+    del plain_main, forced
+    g = torch.Generator(device=dev).manual_seed(46)
+    wide = torch.rand((B_MAIN, T_MAIN, WIDE_A1), generator=g, device=dev)
+    wide /= torch.linalg.vector_norm(wide, dim=-1, keepdim=True)
+    wide_fn = {d: (lambda d=d: beam_cuda.beam_ids_kernel(
+        wide, lengths_d, THR, beam_size=WIDE_BEAM, design=d)) for d in beam_cuda.DESIGNS}
+    wide_plain = beam_cuda.beam_ids_plain(wide, lengths_d, THR, beam_size=WIDE_BEAM)
+    err_wide_d = {d: max(max_abs_diff(x, y) for x, y in zip(fn(), wide_plain))
+                  for d, fn in wide_fn.items()}
+    err_wide = max(err_wide_d.values())
+    log(f"wide instance beam {WIDE_BEAM} A+1={WIDE_A1} B={B_MAIN} T={T_MAIN}: max_abs_err "
+        f"{err_wide_d} against the plain version")
+    if err_wide:
+        raise AssertionError(f"beam kernel <16, 7> != plain at B={B_MAIN}: {err_wide_d}")
+    del wide_plain
     ms = {
         "beam kernel": median_event_ms(
             lambda: beam_cuda.beam_ids_kernel(probs_d, lengths_d, THR, beam_size=BEAM), torch),
+        "beam kernel, warp design": median_event_ms(
+            lambda: beam_cuda.beam_ids_kernel(probs_d, lengths_d, THR, beam_size=BEAM,
+                                              design="warp"), torch),
         "traceback kernel": median_event_ms(
             lambda: beam_cuda.traceback_kernel(fin, ids_log, T=T_MAIN, K=BEAM, A=4), torch),
         "decode_arrays": median_ms(lambda: dec.decode_arrays(probs_d, lengths_d), torch),
@@ -1385,10 +1663,23 @@ def main():
         "plain engine": median_ms(
             lambda: beam_fast.beam_search_fast_batch(probs_d, lengths_d, THR, beam_size=BEAM),
             torch),
+        **{f"beam kernel <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1}), {d} design": median_event_ms(
+            fn, torch) for d, fn in wide_fn.items()},
     }
     for name, t in ms.items():
         log(f"time {name} B={B_MAIN} T={T_MAIN}: {t!r} ms "
             f"({B_MAIN / (t / 1e3):.1f} reads/s) [{smi}]")
+    parent_ms = {}
+    if parent is not None:
+        parent_ms = parent_turns(torch, smi, parent, probs_d, lengths_d, wide)
+    del wide
+    probe = kernel_probe.run(B_MAIN, T_MAIN, device=dev)
+    for line, _ in probe:
+        log(line)
+    design_ms = {}
+    for _, r in probe:
+        if r["what"] == "design":
+            design_ms.setdefault(str(r["B"]), {})[r["design"]] = r["ms"]
     stages = profiling.reset_metrics().stages
     dec.decode(probs_d, lengths_d)
     log(f"decode stages (one call, s): {stages}; "
@@ -1496,7 +1787,16 @@ def main():
         f"{path_launches['viterbi_runs']}}}; tokens, path, n and phred ints equal to the CPU "
         f"run (tolerance 0)")
 
-    # the single-read API on the card equals the batch results
+    # the single-read API on the card equals the batch results; engine="fast"
+    # runs the hash beam at B=1: the warp design
+    beam_cuda.reset_launches()
+    for i in (0, 5):
+        got = api.beam_search(ex_probs[i], ALPHABET, BEAM, THR, engine="fast", device="cuda")
+        if got[0] != ex_res[i][0]:
+            raise AssertionError(f"api.beam_search(fast) read {i} differs from the exact batch")
+    if beam_cuda.launches["beam_warp"] < 2:
+        raise AssertionError(f"api.beam_search(fast): the warp design never launched: "
+                             f"{beam_cuda.launches}")
     for i in (0, 5):
         got = api.beam_search(ex_probs[i], ALPHABET, BEAM, THR, device="cuda")
         if got != ex_res[i][:2]:
@@ -1508,8 +1808,8 @@ def main():
                                   engine="fast", device="cuda")
         if got != crf_res[i][:2]:
             raise AssertionError(f"api.crf_beam_search(fast) read {i} differs from the batch")
-    log("single-read api.beam_search / api.crf_beam_search (exact, fast) on the card "
-        "equal the batch results")
+    log("single-read api.beam_search (exact; fast: the warp design at B=1) / "
+        "api.crf_beam_search (exact, fast) on the card equal the batch results")
     single_ms = single_read_times(torch, smi, ex_probs[0], crf_probs[0], crf_init[0])
     for line, _ in exact_probe.run(B_EXACT, T_MAIN, device=dev):
         log(line)
@@ -1582,10 +1882,25 @@ def main():
         ("library scatter_reduce mean", vit_shape, lambda: v_zero.clone().scatter_reduce_(
             1, v_idx, vp, "mean", include_self=False)),
     ]
+    timed += [
+        (f"crf beam kernel, {r} reads a block", crf_shape, lambda r=r: beam_cuda.crf_beam_ids_kernel(
+            crf_probs_d, crf_init_d, crf_len_d, THR, beam_size=BEAM, reads_per_block=r))
+        for r in (1, 2, 4, 8)
+    ]
     new_ms = {}
     for name, shape, fn in timed:
         new_ms[name] = median_event_ms(fn, torch)
         log(f"time {name} {shape}: {new_ms[name]!r} ms [{smi}]")
+    if parent is not None:  # row 5 beside the parent's kernel on the same inputs
+        old, new, t = turns_ms(
+            torch, lambda: parent.beam_cuda.crf_beam_ids_kernel(
+                crf_probs_d, crf_init_d, crf_len_d, THR, beam_size=BEAM),
+            lambda: beam_cuda.crf_beam_ids_kernel(crf_probs_d, crf_init_d, crf_len_d, THR,
+                                                  beam_size=BEAM),
+            lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
+        parent_ms["row 5 crf beam"] = (old, new)
+        log(f"time row 5 crf beam {crf_shape}: parent {old!r} ms, this tree {new!r} ms "
+            f"(turns parent/new/new/parent: {', '.join(f'{x:.3f}' for x in t)}) [{smi}]")
     dec_ms = {
         f"exact decode_arrays B={B_EXACT} T={T_MAIN}": median_ms(
             lambda: ex_dec.decode_arrays(ex_probs_d, ex_len_d), torch),
@@ -1642,17 +1957,37 @@ def main():
                 "library_ms": None, **extra}
 
     bp = "fast_ctc_decode_tpu/ops/beam_pallas.py:"
+    old_ms = lambda name: parent_ms[name][0] if name in parent_ms else None
+    regs = lambda *names: {n: beam_regs.get(n) for n in names}
     print(json.dumps({"kernels": [
-        row("beam_ids_kernel", "beam_kernel.cu", bp + "367", launches["beam"], err_beam[2],
-            ms["beam kernel"], ms["plain beam"], b_beam, version=2),
+        row("beam_ids_kernel", "beam_kernel.cu", bp + "367", launches[beam_counter(main_design)],
+            max(err_beam["thread"], err_beam["warp"], *err_main_b.values(), err_wide),
+            ms["beam kernel"], ms["plain beam"],
+            b_beam, version=2, design=main_design, warp_source=src + "beam_warp_kernel.cu",
+            thread_min_b=beam_cuda.THREAD_MIN_B,
+            design_by_b={b: beam_cuda.design_for(int(b)) for b in design_ms},
+            design_ms=design_ms, warp_ms=ms["beam kernel, warp design"],
+            small_b_launches={"beam_warp": many_launches["beam_warp"]},
+            parent_ms=old_ms("row 1 beam v2"),
+            wide_ms={d: ms[f"beam kernel <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1}), {d} design"]
+                     for d in beam_cuda.DESIGNS},
+            wide_parent_ms=old_ms("row 1 beam v2 <16, 7>"),
+            registers=regs("beam_ids_kernel<5, 4> v2", "beam_ids_kernel<16, 7> v2",
+                           "beam_warp_kernel<5, 4>")),
         row("traceback_kernel", "traceback_kernel.cu", bp + "967", launches["traceback"],
             err_tb, ms["traceback kernel"], ms["plain traceback"], b_tb),
         row("beam_ids_kernel_v1", "beam_v1_kernel.cu", bp + "93", ab_launches["beam_v1"],
-            err_beam[1], ab_ms[(1, "raw")], ms["plain beam"], b_beam, version=1),
+            err_beam[1], ab_ms[(1, "raw")], ms["plain beam"], b_beam, version=1,
+            parent_ms=old_ms("row 3 beam v1"), registers=regs("beam_ids_kernel<5, 4> v1")),
         row("beam_ids_kernel_v3", "beam_v3_kernel.cu", bp + "679", ab_launches["beam_v3"],
-            err_beam[3], ab_ms[(3, "raw")], ms["plain beam"], b_beam, version=3),
-        row("crf_beam_ids_kernel", "crf_beam_kernel.cu", bp + "1270", path_launches["crf_beam"],
-            err_crf, new_ms["crf beam kernel"], new_ms["plain crf beam"], b_crf),
+            err_beam[3], ab_ms[(3, "raw")], ms["plain beam"], b_beam, version=3,
+            parent_ms=old_ms("row 4 beam v3"), registers=regs("beam_ids_kernel<5, 4> v3")),
+        row("crf_beam_ids_kernel", "beam_warp_kernel.cu", bp + "1270", path_launches["crf_beam"],
+            err_crf, new_ms["crf beam kernel"], new_ms["plain crf beam"], b_crf,
+            reads_per_block=beam_cuda.READS_PER_BLOCK,
+            reads_per_block_ms={r: new_ms[f"crf beam kernel, {r} reads a block"]
+                                for r in (1, 2, 4, 8)},
+            parent_ms=old_ms("row 5 crf beam"), registers=regs("beam_warp_kernel<5, 4> CRF")),
         row("exact_beam_kernel", "exact_beam_kernel.cu",
             "fast_ctc_decode_tpu/ops/beam_exact_pallas.py:65", path_launches["exact"], err_exact,
             new_ms["exact kernel"], new_ms["plain exact"], b_exact,
@@ -1666,7 +2001,7 @@ def main():
         *duplex_rows,
         row("beam_ablate_kernel", "beam_ablate_kernel.cu", "tools/kernel_ablate.py:36",
             abl["launches"], abl["max_abs_err"], abl["ms"], abl["plain_ms"], abl["bound"],
-            sets_ms=abl["sets_ms"]),
+            sets_ms=abl["sets_ms"], parent_ms=old_ms("row 10 ablation")),
         dict(row("viterbi_run_means_kernel", "viterbi_runs_kernel.cu",
                  "none: no Pallas counterpart (XLA segment_sum, "
                  "fast_ctc_decode_tpu/ops/viterbi.py:96)", path_launches["viterbi_runs"], v_err,

@@ -103,8 +103,9 @@ def viterbi_search(
     device=None,
 ) -> Tuple[str, List[int]]:
     """Viterbi decode; parity with src/lib.rs:180-212 / src/search.rs:320-383.
-    The per-frame argmax runs on ``device``; the run-mean qualities are
-    assembled on the host with the reference's sequential f32 sums."""
+    The per-frame argmax and the run means (summed in frame order, as the
+    batch decoder sums them) run on ``device``; the strings are built on
+    the host."""
     device = resolve_device(device)
     alphabet = normalize_alphabet(alphabet)
     network_output = _as_f32(network_output, 2, "network_output")
@@ -121,8 +122,7 @@ def viterbi_search(
         torch.from_numpy(network_output).to(device)
     )
     return viterbi_ops.assemble_host(
-        labels.cpu().numpy(), pmax.cpu().numpy(), alphabet, qstring, qscale,
-        qbias, collapse_repeats,
+        labels, pmax, alphabet, qstring, qscale, qbias, collapse_repeats,
     )
 
 

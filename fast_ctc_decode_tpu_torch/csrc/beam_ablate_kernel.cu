@@ -22,8 +22,8 @@ template <int ABL>
 cudaError_t launch_ablate(const float* probs, const int* lengths, float thr, int B,
                           int T, int A, int K, int* ids_log, int* fin, int* err,
                           cudaStream_t s) {
-  return launch_beam_ids<5, 4, false, 1, ABL>(probs, nullptr, lengths, thr, B, T, 1, 1,
-                                              A, K, 1, ids_log, fin, err, s);
+  return launch_beam_ids<5, 4, 1, ABL>(probs, lengths, thr, B, T, A, K, 1, ids_log, fin,
+                                       err, s);
 }
 
 }  // namespace

@@ -1,20 +1,19 @@
-// Batched CTC prefix beam search, hash-identity form: the forward beam over
-// all T steps, shared by the 1D kernels (beam_kernel.cu, beam_v1_kernel.cu,
-// beam_v3_kernel.cu, beam_ablate_kernel.cu) and the CRF kernel
-// (crf_beam_kernel.cu).
+// Batched 1D CTC prefix beam search, hash-identity form, one thread per read:
+// the forward beam over all T steps, shared by the 1D kernels (beam_kernel.cu,
+// beam_v1_kernel.cu, beam_v3_kernel.cu, beam_ablate_kernel.cu).  The CRF beam
+// and the 1D beam at small B run one warp per read (beam_warp_kernel.cu).
 //
 // It computes what the plain engine fast_ctc_decode_tpu_torch/ops/beam_fast.py
 // computes, bit for bit: hash-identity tips, analytic merge (blank + stay +
-// one arrival), K rounds of (max total, tie -> min id) top-K, true-division
-// renormalisation, the beam cut, collapse_repeats (1D), per-tip transition
-// states (CRF), per-read lengths and the status codes.  Outputs: the
-// [T, K, B] log of entry-tip ids (read-minor), the final best id and the
-// status code of every read.
+// one arrival), the top K by (max total, tie -> min id), true-division
+// renormalisation, the beam cut, collapse_repeats, per-read lengths and the
+// status codes.  Outputs: the [T, K, B] log of entry-tip ids (read-minor),
+// the final best id and the status code of every read.
 //
 // Three versions of the prefix identity, one template parameter V, as the
 // TPU kernels of beam_pallas.py (_KERNEL_VARIANTS); all give the same
 // outputs:
-//  - V = 1 (_beam_kernel, and the CRF kernel): each tip carries its OWN
+//  - V = 1 (_beam_kernel): each tip carries its OWN
 //    hash pair.  Every step mixes all K*A child hashes, compares each with
 //    every tip's own hash, and the selection rounds pick the winners'
 //    hashes (a fresh winner's is mixed again).
@@ -22,12 +21,13 @@
 //    pair.  Own hashes are mixed once per tip per step (the root's is the
 //    seed), extension (k, a) matches tip j iff own(k) == parent(j), a ==
 //    last(j) and j is valid (mix is a bijection of the hash for a fixed
-//    label, so this is exactly V1's test), the rounds record only each
-//    winner's source, and the new parent hashes are rebuilt after the
-//    rounds: a fresh winner (k, a) takes own(k), a tip winner keeps its
-//    parent.  No hash travels through the K rounds.  The TPU kernel's
-//    vector tricks (label XOR fold, validity poisoning) are left out: the
-//    fields are compared directly.
+//    label, so this is exactly V1's test), the selection records only each
+//    winner's source, and the new parent hashes are rebuilt after it: a
+//    fresh winner (k, a) takes own(k), a tip winner keeps its parent.  No
+//    hash travels through the selection.  The TPU kernel's vector tricks
+//    (label XOR fold, validity poisoning) are left out: the fields are
+//    compared directly.  V2's narrow instance alone selects in one pass
+//    (below).
 //  - V = 3 (_beam_kernel3): V2 with the candidates enumerated a-major: the
 //    expansion, the merge and the key array run a outer, k inner, so p[a]
 //    and its threshold test are loaded once per label.  Candidate ids stay
@@ -35,8 +35,27 @@
 // ABL (version 1 only, kernel_ablate): a compile-time mask of step phases
 // replaced by stubs, deliberately wrong, to attribute time to the phases.
 //
+// Selection.  V1, V3 and the ablation kernel keep the first design, as the
+// yardstick of the A/B and ablation tools: K rounds of (max key, tie -> min
+// id), each scanning all K + K*A keys and then picking the winner's fields
+// in a second pass.  So does V2's wide instance <16, 7>: its candidate loop
+// is not unrolled, so a one-pass list of 16 slots lives in local memory
+// (ptxas: 32 registers and ~16 KB spilled, against 255 and ~3.5 KB), and it
+// ran 1.8x slower than the rounds at B = 32768, beam 16, A+1 = 8 on an H100
+// (chip_smoke.py --parent).  V2's narrow instance selects in one pass:
+// each candidate goes into a sorted list of the KMAX best as one 64-bit
+// word (the key's order-preserving bits, then 255 minus a tie rank, then
+// the candidate slot c in the low byte; the tie rank orders the tips by id
+// and puts the fresh candidates after them in id order, which is their
+// slot order).
+// Every slot compares with the word at once and a shift by selects follows,
+// so a candidate costs a few dependent operations, not K scans.  Valid ids
+// are distinct and -inf keys are never inserted, so slot r ends with
+// exactly what round r picks; the winners' fields are then taken from
+// their slots c.
+//
 // Design: one thread per read, block 128.  The beam (K tips x lab, gap,
-// h1, h2, last label, state, id, valid) and the K + K*A candidate keys live
+// h1, h2, last label, id, valid) and the K + K*A candidate keys live
 // in per-thread arrays whose sizes are template bounds (KMAX, AMAX); every
 // loop runs to the bound and is predicated on the runtime K and A, so the
 // arrays are indexed by constants after unrolling and can stay in
@@ -44,22 +63,16 @@
 // its length or has a non-zero status is frozen and only logs its ids from
 // then on.
 //
-// CRF (template flag, V = 1 only): each tip reads its own row
-// probs[b, t, state_k, :] by one indexed load (the TPU kernel's log2(S)
-// select tree and its power-of-two S / 8-lane padding are layout and have
-// no counterpart), adds +0.0 to every entry as the plain engine's one-hot
-// masked sum does, has no repeat collapse and no stay, and carries its
-// state through selection.
-//
 // What bounds it on this card: latency and registers.  Each step is a long
 // dependent chain of compares and selects per thread, and the per-thread
 // state (about 150 live values at K=5, A=4) limits how many warps an SM
 // holds; the wide instances spill to local memory.  The simple design
 // accepts that: no shared-memory staging, no warp cooperation.  Its loads
-// (4*(A+1) bytes per step, per tip for CRF) are strided by T*(A+1)*4 bytes
-// (CRF: T*S*(A+1)*4) between threads and do not coalesce; only the id-log
-// stores do.  Staging tiles through shared memory is left to a measured
-// later change.
+// (4*(A+1) bytes per step) are strided by T*(A+1)*4 bytes between threads
+// and do not coalesce; only the id-log stores do.  At B = 32768 its 1,024
+// warps keep all 32 lanes of each busy on distinct reads; at small B
+// (too few warps for 132 SMs) the warp-per-read kernel serves instead.
+// Staging tiles through shared memory is left to a measured later change.
 //
 // Bit-parity rules: arithmetic uses __fmul_rn / __fadd_rn / __fdiv_rn
 // (never contracted into FMA; the library is also built with -fmad=false)
@@ -112,17 +125,20 @@ __device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t x, uint32_t mult,
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-// probs: [B, T, A+1] (1D) or [B, T, S, A+1] (CRF) f32; init: [B, Si] f32
-// (CRF only; nullptr for 1D).
-template <int KMAX, int AMAX, bool CRF, int V, int ABL>
+// probs: [B, T, A+1] f32.  The parameter list is the first design's, whose
+// CRF instances read init [B, Si] and rows of S states (they moved to
+// beam_warp_kernel.cu): the 1D instances take S = Si = 1 and no init, and
+// keep that list so that versions 1 and 3 and the ablation sets compile to
+// the registers they had before (chip_smoke.py --parent compares them).
+// init, S and Si are dead; they go with the first design.
+template <int KMAX, int AMAX, int V, int ABL>
 __global__ void __launch_bounds__(kBlock)
 beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
                 const int* __restrict__ lengths, float thr, int B, int T, int S,
                 int Si, int A, int K, int collapse, int* __restrict__ ids_log,
                 int* __restrict__ fin, int* __restrict__ err_out) {
   static_assert(V >= 1 && V <= 3, "versions 1, 2, 3");
-  static_assert(!CRF || V == 1, "the CRF kernel is version 1");
-  static_assert(ABL == 0 || (V == 1 && !CRF), "ablation runs on the 1D version 1");
+  static_assert(ABL == 0 || V == 1, "ablation runs on version 1");
   constexpr int CMAX = KMAX + KMAX * AMAX;
   // The (k, a) loops run k outer (V1, V2) or a outer (V3): O x I.
   constexpr int O = V == 3 ? AMAX : KMAX;
@@ -132,6 +148,7 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
   // anyway, so their per-round state lives in local memory.
   constexpr int UK = KMAX * CMAX <= 256 ? KMAX : 1;
   constexpr int UO = KMAX * CMAX <= 256 ? O : 1;
+  constexpr bool ONE_PASS = V == 2 && UK == KMAX;  // the selection (above)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int A1 = A + 1;
@@ -143,42 +160,28 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
 #define FA(c) (V == 3 ? ((c) - KMAX) / KMAX : ((c) - KMAX) % AMAX)
 
   // ---- beam state: the root alone in slot 0 ----
-  float lab0 = 0.f, gap0 = 1.f;
-  int st0 = 0;
-  if (CRF) {
-    // (max(init), init[0], argmax(init)): a NaN counts as the maximum and
-    // the first maximum wins, as jnp.max / jnp.argmax (and torch) do
-    const float* ini = init + (size_t)b * Si;
-    lab0 = ini[0];
-    gap0 = ini[0];
-    bool nan_seen = isnan(lab0);
-    for (int s = 1; s < Si && !nan_seen; ++s) {
-      const float v = ini[s];
-      if (isnan(v) || v > lab0) {
-        lab0 = v;
-        st0 = s;
-        nan_seen = isnan(v);
-      }
-    }
-  }
   // h1/h2: the tip's own hash (V1) or its parent's hash (V2, V3; the
   // root's is unused: its own hash is the seed)
   float lab[KMAX], gap[KMAX];
   uint32_t h1[KMAX], h2[KMAX];
-  int ll[KMAX], id[KMAX], st[KMAX];
+  int ll[KMAX], id[KMAX];
   bool valid[KMAX];
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
-    lab[k] = k == 0 ? lab0 : 0.f;
-    gap[k] = k == 0 ? gap0 : 0.f;
+    lab[k] = 0.f;
+    gap[k] = k == 0 ? 1.f : 0.f;
     h1[k] = (V == 1 && k == 0) ? kSeed1 : 0u;
     h2[k] = (V == 1 && k == 0) ? kSeed2 : 0u;
     ll[k] = -1;
-    st[k] = k == 0 ? st0 : 0;
     id[k] = k == 0 ? kRoot : kEmpty;
     valid[k] = k == 0;
   }
   int err = 0;
+  // version 2: frame t+1's row is loaded during step t
+  float pn[AMAX + 1];
+#pragma unroll
+  for (int a = 0; a <= AMAX; ++a)
+    pn[a] = (V == 2 && a <= A && 0 < len && 0 < T) ? row[a] : 0.f;
 
   int t = 0;
   for (; t < T; ++t) {
@@ -189,24 +192,17 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
     }
     if (t >= len || err != 0) break;  // frozen from here on
 
-    // p[a] (1D: one row) or pk[k][a] (CRF: each tip's row, +0.0 added)
+    // frame t's row
     float p[AMAX + 1];
-    float pk[KMAX][AMAX + 1];
 #pragma unroll
-    for (int a = 0; a <= AMAX; ++a)
-      p[a] = (!CRF && a <= A) ? row[(size_t)t * A1 + a] : 0.f;
-    if (CRF) {
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        const int s = st[k] < 0 ? 0 : (st[k] > S - 1 ? S - 1 : st[k]);
-        const float* r = row + ((size_t)t * S + s) * A1;
-#pragma unroll
-        for (int a = 0; a <= AMAX; ++a)
-          pk[k][a] = (k < K && a <= A) ? __fadd_rn(r[a], 0.f) : 0.f;
+    for (int a = 0; a <= AMAX; ++a) {
+      if constexpr (V == 2) {
+        p[a] = pn[a];
+        pn[a] = (a <= A && t + 1 < len && t + 1 < T) ? row[(size_t)(t + 1) * A1 + a] : 0.f;
+      } else {
+        p[a] = a <= A ? row[(size_t)t * A1 + a] : 0.f;
       }
     }
-#define P0(k) (CRF ? pk[(k)][0] : p[0])
-#define PL(k, a) (CRF ? pk[(k)][1 + (a)] : p[1 + (a)])
 
     float lg[KMAX];
 #pragma unroll
@@ -265,8 +261,8 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
               if (j < K && valid[j] && ll[j] == a && h1[j] == th1 && h2[j] == th2)
                 m |= 1u << j;
           }
-          const float pa = PL(k, a);
-          const bool is_rep = !CRF && collapse && ll[k] == a;
+          const float pa = p[1 + a];
+          const bool is_rep = collapse && ll[k] == a;
           const bool pushed = valid[k] && !(pa < thr);
           me = __fmul_rn(is_rep ? gap[k] : lg[k], pa);
           pu = (ABL & kAblMatch) ? pushed
@@ -295,25 +291,20 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
             recv_any = true;
           }
         }
-      float stay_lab = 0.f;
-      bool stay_push = false;
-      if (!CRF) {
-        const int safe_last = ll[j] < 0 ? 0 : (ll[j] > A - 1 ? A - 1 : ll[j]);
-        float p_stay = 0.f;
+      const int safe_last = ll[j] < 0 ? 0 : (ll[j] > A - 1 ? A - 1 : ll[j]);
+      float p_stay = 0.f;
 #pragma unroll
-        for (int a = 0; a < AMAX; ++a)
-          if (a == safe_last) p_stay = p[1 + a];
-        stay_push = collapse && valid[j] && ll[j] >= 0 && ll[j] < A && !(p_stay < thr);
-        stay_lab = stay_push ? __fmul_rn(lab[j], p_stay) : 0.f;
-      }
-      const float p0 = j < K ? P0(j) : 0.f;
+      for (int a = 0; a < AMAX; ++a)
+        if (a == safe_last) p_stay = p[1 + a];
+      const bool stay_push =
+          collapse && valid[j] && ll[j] >= 0 && ll[j] < A && !(p_stay < thr);
+      const float stay_lab = stay_push ? __fmul_rn(lab[j], p_stay) : 0.f;
+      const float p0 = j < K ? p[0] : 0.f;
       const bool blank_push = valid[j] && (p0 > thr);
       tip_gap[j] = blank_push ? __fmul_rn(lg[j], p0) : 0.f;
       tip_lab[j] = __fadd_rn(stay_lab, recv);
       tip_valid[j] = j < K && (blank_push || stay_push || recv_any);
     }
-#undef P0
-#undef PL
 
     // ---- candidate keys: K tips then K*A fresh extensions ----
     float key[CMAX];
@@ -336,15 +327,81 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       key[c] = v ? (isnan(total) ? pos_inf() : __fadd_rn(total, 0.f)) : neg_inf();
     }
 
-    // ---- top-K: K rounds of (max key, tie -> min id) ----
-    // Version 1 picks each winner's fields in its round; versions 2 and 3
-    // record its source slot (nsrc) and rebuild hashes and labels after.
+    // ---- top-K by (max key, tie -> min id) ----
+    // Version 2's narrow instance selects in one pass; the rest in K
+    // rounds.  Version 1 picks each winner's fields in its round; versions
+    // 2 and 3 record its source slot (nsrc) and rebuild hashes and labels
+    // after.
     constexpr int R = (ABL & kAblRounds) ? 1 : KMAX;
     float top = 0.f;
     float nlab[KMAX], ngap[KMAX];
     uint32_t nh1[KMAX], nh2[KMAX];
-    int nll[KMAX], nid[KMAX], nst[KMAX], nsrc[KMAX];
+    int nll[KMAX], nid[KMAX], nsrc[KMAX];
     bool nvalid[KMAX];
+    if constexpr (ONE_PASS) {
+      // a tip's tie rank: the number of tips with a smaller id
+      int tie[KMAX];
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        int n = 0;
+#pragma unroll
+        for (int i = 0; i < KMAX; ++i) n += (i < K && id[i] < id[j]) ? 1 : 0;
+        tie[j] = n;
+      }
+      // the sorted list of the KMAX best words, larger first; 0 = empty
+      unsigned long long best[KMAX];
+#pragma unroll
+      for (int r = 0; r < KMAX; ++r) best[r] = 0ull;
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c) {
+        const uint32_t kb = __float_as_uint(key[c]);
+        const uint32_t ord = kb ^ ((kb >> 31) ? 0xffffffffu : 0x80000000u);
+        const uint32_t rank = c < KMAX ? (uint32_t)tie[c] : (uint32_t)c;
+        const uint32_t lo = ((255u - rank) << 8) | (uint32_t)c;
+        const unsigned long long x =
+            key[c] > neg_inf() ? ((unsigned long long)ord << 32) | lo : 0ull;
+        bool gt[KMAX];
+#pragma unroll
+        for (int r = 0; r < KMAX; ++r) gt[r] = x > best[r];
+#pragma unroll
+        for (int r = KMAX - 1; r >= 0; --r)
+          best[r] = (r > 0 && gt[r > 0 ? r - 1 : 0]) ? best[r > 0 ? r - 1 : 0]
+                                                     : (gt[r] ? x : best[r]);
+      }
+      // slot r: the winner's fields from its candidate slot c, selected
+      // over the register arrays
+#pragma unroll
+      for (int r = 0; r < KMAX; ++r) {
+        const bool v = r < K && best[r] != 0ull;
+        const int c = v ? (int)(best[r] & 0xffu) : 0;
+        float sel_lab = 0.f, sel_gap = 0.f;
+        int sel_id = c >= KMAX ? t * KA + FK(c) * A + FA(c) : 0;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          if (c != j) continue;
+          sel_lab = tip_lab[j];
+          sel_gap = tip_gap[j];
+          sel_id = id[j];
+        }
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+          for (int a = 0; a < AMAX; ++a)
+            if (c == KMAX + k * AMAX + a) sel_lab = mext[k][a];
+        // the masked sums of the plain engine add +0.0: canonical -0.0
+        sel_lab = __fadd_rn(sel_lab, 0.f);
+        sel_gap = __fadd_rn(sel_gap, 0.f);
+        if (r == 0 && v) top = __fadd_rn(sel_lab, sel_gap);  // raw total, NaN kept
+        nlab[r] = v ? sel_lab : 0.f;
+        ngap[r] = v ? sel_gap : 0.f;
+        nh1[r] = 0u;
+        nh2[r] = 0u;
+        nll[r] = -1;
+        nid[r] = v ? sel_id : kEmpty;
+        nsrc[r] = v ? c : -1;
+        nvalid[r] = v;
+      }
+    } else {
 #pragma unroll(UK)
     for (int r = 0; r < R; ++r) {
       nlab[r] = 0.f;
@@ -352,7 +409,6 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       nh1[r] = 0u;
       nh2[r] = 0u;
       nll[r] = -1;
-      nst[r] = 0;
       nid[r] = kEmpty;
       nsrc[r] = -1;
       nvalid[r] = false;
@@ -387,7 +443,6 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
               nh2[r] = h2[c];
             }
             nll[r] = ll[c];
-            nst[r] = st[c];
           }
         } else {
           const int k = FK(c), a = FA(c);
@@ -399,7 +454,6 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
               nh2[r] = (ABL & kAblMix) ? h2[k] : mix(h2[k], (uint32_t)a, kMult2, kAdd2);
             }
             nll[r] = a;
-            nst[r] = CRF ? (st[k] * A) % S + a : 0;
           }
         }
       }
@@ -412,6 +466,7 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       nid[r] = best_id;
       nsrc[r] = best;
       nvalid[r] = true;
+    }
     }
     if (V != 1) {
       // new parent hashes from each winner's source: a tip keeps its
@@ -445,7 +500,6 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       h1[r] = nh1[r];
       h2[r] = nh2[r];
       ll[r] = nll[r];
-      st[r] = nst[r];
       id[r] = nid[r];
       valid[r] = nvalid[r];
     }
@@ -464,14 +518,13 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
   err_out[b] = err;
 }
 
-template <int KMAX, int AMAX, bool CRF, int V, int ABL = 0>
-cudaError_t launch_beam_ids(const float* probs, const float* init,
-                            const int* lengths, float thr, int B, int T, int S,
-                            int Si, int A, int K, int collapse, int* ids_log,
-                            int* fin, int* err, cudaStream_t stream) {
+template <int KMAX, int AMAX, int V, int ABL = 0>
+cudaError_t launch_beam_ids(const float* probs, const int* lengths, float thr, int B,
+                            int T, int A, int K, int collapse, int* ids_log, int* fin,
+                            int* err, cudaStream_t stream) {
   const dim3 grid((B + kBlock - 1) / kBlock);
-  beam_ids_kernel<KMAX, AMAX, CRF, V, ABL><<<grid, kBlock, 0, stream>>>(
-      probs, init, lengths, thr, B, T, S, Si, A, K, collapse, ids_log, fin, err);
+  beam_ids_kernel<KMAX, AMAX, V, ABL><<<grid, kBlock, 0, stream>>>(
+      probs, nullptr, lengths, thr, B, T, 1, 1, A, K, collapse, ids_log, fin, err);
   return cudaGetLastError();
 }
 

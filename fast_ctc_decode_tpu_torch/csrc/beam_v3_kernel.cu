@@ -24,11 +24,11 @@ int ctc_beam_ids_v3_launch(const float* probs, const int* lengths, float thr,
   if (B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K <= 5 && A <= 4)
-    return launch_beam_ids<5, 4, false, 3>(probs, nullptr, lengths, thr, B, T, 1, 1, A,
-                                           K, collapse, ids_log, fin, err, s);
+    return launch_beam_ids<5, 4, 3>(probs, lengths, thr, B, T, A, K, collapse,
+                                    ids_log, fin, err, s);
   if (K <= 16 && A <= 7)
-    return launch_beam_ids<16, 7, false, 3>(probs, nullptr, lengths, thr, B, T, 1, 1, A,
-                                            K, collapse, ids_log, fin, err, s);
+    return launch_beam_ids<16, 7, 3>(probs, lengths, thr, B, T, A, K, collapse,
+                                     ids_log, fin, err, s);
   return cudaErrorInvalidValue;
 }
 

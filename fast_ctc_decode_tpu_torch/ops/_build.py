@@ -150,7 +150,10 @@ SIGNATURES = {
     "ctc_beam_ids_v3_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ctc_beam_ablate_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ctc_traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "ctc_crf_beam_ids_launch": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ctc_beam_warp_launch": [
+        _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
+    ],
+    "ctc_beam_warp_blocks_per_sm": [_I, _I, _I, _I],
     "ctc_exact_beam_launch": [
         _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _P, ctypes.c_longlong, _P, _P, _P, _P, _I, _P,

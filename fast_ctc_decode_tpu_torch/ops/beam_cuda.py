@@ -1,33 +1,40 @@
 """Hand-written CUDA kernels of the batched hash-identity beam paths (1D and
 CRF), with their plain versions.
 
-Five kernels, built from ``csrc/`` by ``ops/_build.py`` and launched through
+Six kernels, built from ``csrc/`` by ``ops/_build.py`` and launched through
 ctypes on PyTorch's current stream:
 
  - ``beam_ids_kernel`` launches one of three versions of the fused T-loop
-   beam, one thread per read (``csrc/beam_core.cuh`` describes them); all
-   compute one function, whose plain version is
-   ``beam_fast.beam_search_ids_batch``:
+   beam (``csrc/beam_core.cuh`` describes them); all compute one function,
+   whose plain version is ``beam_fast.beam_search_ids_batch``:
 
-   - version 2, the default (``csrc/beam_kernel.cu``), replaces
+   - version 2, the default, replaces
      ``fast_ctc_decode_tpu/ops/beam_pallas.py::_beam_kernel2`` (parent-hash
-     identity);
+     identity) in two designs, routed by the batch size alone: at
+     ``B >= THREAD_MIN_B`` one thread per read with a one-pass selection
+     (``csrc/beam_kernel.cu``), below it one warp per read
+     (``csrc/beam_warp_kernel.cu``), which fills the card where a thread
+     per read leaves most SMs idle.  Both give the same outputs;
+     ``design=`` forces one (for the probe and ``chip_smoke.py``; the
+     decoders never pass it);
    - version 1 (``csrc/beam_v1_kernel.cu``) replaces ``_beam_kernel``
-     (own-hash identity);
+     (own-hash identity), one thread per read, K selection rounds;
    - version 3 (``csrc/beam_v3_kernel.cu``) replaces ``_beam_kernel3``
-     (version 2 with the candidates enumerated a-major).
+     (version 2 with the candidates enumerated a-major), one thread per
+     read, K selection rounds.
 
    They exist side by side for the A/B tool ``tools/ab_bench.py``, as
-   ``beam_search_pallas_batch(version=...)`` does in the JAX package.
+   ``beam_search_pallas_batch(version=...)`` does in the JAX package;
+   versions 1 and 3 keep the first design as its yardstick.
  - ``traceback_kernel`` (``csrc/traceback_kernel.cu``) replaces
    ``beam_pallas.py::_traceback_kernel`` plus the key sort of
    ``beam_fast._sort_unpack_keys``: a direct walk of the id log, one thread
    per read.  Plain version: ``beam_fast._traceback_scan_batch``.  It walks
    the CRF id log and the duplex slot kernel's id log too (same id coding).
- - ``crf_beam_ids_kernel`` (``csrc/crf_beam_kernel.cu``) replaces
-   ``beam_pallas.py::_crf_beam_kernel``: the CRF instances of the fused
-   beam, one thread per read, each tip loading its own state's row.  Plain
-   version: ``beam_fast.crf_beam_search_ids_batch``.
+ - ``crf_beam_ids_kernel`` (``csrc/beam_warp_kernel.cu``, CRF instances)
+   replaces ``beam_pallas.py::_crf_beam_kernel``: one warp per read, each
+   tip's pairs loading its own state's row.  Plain version:
+   ``beam_fast.crf_beam_search_ids_batch``.
 
 Each wrapper checks its inputs and its kernel's bounds and raises beyond
 them, whatever the device.  A tensor on the CPU then goes to the plain
@@ -43,8 +50,11 @@ from . import _build
 from . import beam_fast
 
 #: kernel launches per wrapper since the last reset (plain integers); "beam"
-#: counts version 2, "beam_v1" / "beam_v3" the A/B versions
-launches = {"beam": 0, "beam_v1": 0, "beam_v3": 0, "traceback": 0, "crf_beam": 0}
+#: counts version 2 one thread per read, "beam_warp" version 2 one warp per
+#: read, "beam_v1" / "beam_v3" the A/B versions
+launches = {
+    "beam": 0, "beam_warp": 0, "beam_v1": 0, "beam_v3": 0, "traceback": 0, "crf_beam": 0,
+}
 
 #: version -> (C launch function, launch counter)
 VERSIONS = {
@@ -55,6 +65,12 @@ VERSIONS = {
 
 MAX_BEAM = 16  # per-thread beam arrays of the widest kernel instance
 MAX_A1 = 8  # blank + at most 7 labels
+#: version 2 runs one thread per read from this batch size on, one warp per
+#: read below it (set from ``tools/kernel_probe.py``'s times, PERF.md)
+THREAD_MIN_B = 8192
+DESIGNS = ("thread", "warp")
+MAX_READS_PER_BLOCK = 8  # csrc/beam_warp_kernel.cu: kMaxReadsPerBlock
+READS_PER_BLOCK = 4  # the warp kernel's default launch: four reads a block
 
 beam_ids_plain = beam_fast.beam_search_ids_batch
 crf_beam_ids_plain = beam_fast.crf_beam_search_ids_batch
@@ -84,6 +100,30 @@ def _check(x, name, dtype, shape, device):
         raise ValueError(f"unsupported device {device}")
 
 
+def design_for(B: int) -> str:
+    """The version-2 design that a batch of B reads runs."""
+    return "thread" if B >= THREAD_MIN_B else "warp"
+
+
+def _check_reads_per_block(rpb) -> int:
+    if isinstance(rpb, bool) or not isinstance(rpb, int) or not 1 <= rpb <= MAX_READS_PER_BLOCK:
+        raise ValueError(
+            f"reads_per_block must be an int in [1, {MAX_READS_PER_BLOCK}], got {rpb!r}"
+        )
+    return rpb
+
+
+def warp_blocks_per_sm(K: int, A: int, *, crf: bool, reads_per_block: int = READS_PER_BLOCK) -> int:
+    """Blocks of ``reads_per_block`` warps one SM holds at once for the warp
+    kernel's instance that (K, A) launches, by the CUDA runtime's occupancy
+    calculation (needs the built library and a card)."""
+    rpb = _check_reads_per_block(reads_per_block)
+    blocks = _build.load_library().ctc_beam_warp_blocks_per_sm(K, A, int(bool(crf)), rpb)
+    if blocks < 0:
+        _raise_for(-blocks, "warp beam kernel occupancy")
+    return blocks
+
+
 def _bounds(T, K, A):
     if not 1 <= K <= MAX_BEAM:
         raise ValueError(f"beam_size must be in [1, {MAX_BEAM}] for the CUDA kernel, got {K}")
@@ -105,14 +145,22 @@ def _version(version):
     return VERSIONS[version]
 
 
-def beam_ids_kernel(probs, lengths, thr, *, beam_size, collapse_repeats=True, version=2):
+def beam_ids_kernel(
+    probs, lengths, thr, *, beam_size, collapse_repeats=True, version=2, design=None,
+    reads_per_block=READS_PER_BLOCK,
+):
     """Forward beam: ``(ids_log [T, K, B], fin [B], err [B])``, all int32.
 
     probs: [B, T, A+1] f32 contiguous; lengths: [B] i32 on the same device.
     ``version`` (1, 2 or 3) picks the kernel on a CUDA tensor; every version
     computes the same outputs, so a CPU tensor runs the plain version for any.
+    Version 2 runs ``design_for(B)`` unless ``design`` ("thread" or "warp")
+    forces one; ``reads_per_block`` (1..8) sets the warp design's block.
     """
-    fn_name, counter = _version(version)
+    _version(version)
+    if design is not None and (version != 2 or design not in DESIGNS):
+        raise ValueError(f"design must be None or one of {DESIGNS} (version 2), got {design!r}")
+    rpb = _check_reads_per_block(reads_per_block)
     if not isinstance(probs, torch.Tensor) or probs.dim() != 3:
         raise ValueError("probs must be a [B, T, A+1] torch.Tensor")
     B, T, A1 = probs.shape
@@ -124,31 +172,67 @@ def beam_ids_kernel(probs, lengths, thr, *, beam_size, collapse_repeats=True, ve
         return beam_ids_plain(
             probs, lengths, thr, beam_size=K, collapse_repeats=collapse_repeats
         )
-    dev = probs.device
-    ids_log = torch.empty((T, K, B), dtype=torch.int32, device=dev)
-    fin = torch.empty((B,), dtype=torch.int32, device=dev)
-    err = torch.empty((B,), dtype=torch.int32, device=dev)
+    if version == 2 and (design or design_for(B)) == "warp":
+        return _warp_launch(probs, None, lengths, thr, B=B, T=T, S=1, Si=1, A=A1 - 1, K=K,
+                            collapse=collapse_repeats, crf=False, rpb=rpb)
+    return _thread_launch(probs, lengths, thr, B=B, T=T, A=A1 - 1, K=K,
+                          collapse=collapse_repeats, version=version)
+
+
+def _outputs(B, T, K, dev):
+    """The beam kernels' outputs: ids_log [T, K, B], fin [B], err [B] (i32)."""
+    return (torch.empty((T, K, B), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev))
+
+
+def _thread_launch(probs, lengths, thr, *, B, T, A, K, collapse, version):
+    """A one-thread-per-read kernel (``csrc/beam_core.cuh``) of ``version``."""
+    fn_name, counter = _version(version)
+    ids_log, fin, err = _outputs(B, T, K, probs.device)
     if B == 0:
         return ids_log, fin, err
     lib = _build.load_library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(probs.device):
         rc = getattr(lib, fn_name)(
-            probs.data_ptr(), lengths.data_ptr(), float(thr),
-            B, T, A1 - 1, K, int(bool(collapse_repeats)),
-            ids_log.data_ptr(), fin.data_ptr(), err.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            probs.data_ptr(), lengths.data_ptr(), float(thr), B, T, A, K,
+            int(bool(collapse)), ids_log.data_ptr(), fin.data_ptr(), err.data_ptr(),
+            torch.cuda.current_stream(probs.device).cuda_stream,
         )
     _raise_for(rc, f"beam kernel (version {version})")
     launches[counter] += 1
     return ids_log, fin, err
 
 
-def crf_beam_ids_kernel(probs, init_states, lengths, thr, *, beam_size):
+def _warp_launch(probs, init_states, lengths, thr, *, B, T, S, Si, A, K, collapse, crf, rpb):
+    """The warp-per-read kernel (``csrc/beam_warp_kernel.cu``), 1D or CRF."""
+    dev = probs.device
+    ids_log, fin, err = _outputs(B, T, K, dev)
+    if B == 0:
+        return ids_log, fin, err
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.ctc_beam_warp_launch(
+            probs.data_ptr(), init_states.data_ptr() if crf else None,
+            lengths.data_ptr(), float(thr), B, T, S, Si, A, K, int(bool(collapse)),
+            int(crf), ids_log.data_ptr(), fin.data_ptr(), err.data_ptr(), rpb,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_for(rc, "CRF beam kernel" if crf else "warp beam kernel")
+    launches["crf_beam" if crf else "beam_warp"] += 1
+    return ids_log, fin, err
+
+
+def crf_beam_ids_kernel(
+    probs, init_states, lengths, thr, *, beam_size, reads_per_block=READS_PER_BLOCK
+):
     """CRF forward beam: ``(ids_log [T, K, B], fin [B], err [B])``, all int32.
 
     probs: [B, T, S, A+1] f32 contiguous; init_states: [B, Si] f32;
-    lengths: [B] i32; all on one device.
+    lengths: [B] i32; all on one device.  One warp per read,
+    ``reads_per_block`` (1..8) reads a block.
     """
+    rpb = _check_reads_per_block(reads_per_block)
     if not isinstance(probs, torch.Tensor) or probs.dim() != 4:
         raise ValueError("probs must be a [B, T, S, A+1] torch.Tensor")
     B, T, S, A1 = probs.shape
@@ -163,23 +247,8 @@ def crf_beam_ids_kernel(probs, init_states, lengths, thr, *, beam_size):
     _crf_bounds(S, Si, A1 - 1)
     if probs.device.type == "cpu":
         return crf_beam_ids_plain(probs, init_states, lengths, thr, beam_size=K)
-    dev = probs.device
-    ids_log = torch.empty((T, K, B), dtype=torch.int32, device=dev)
-    fin = torch.empty((B,), dtype=torch.int32, device=dev)
-    err = torch.empty((B,), dtype=torch.int32, device=dev)
-    if B == 0:
-        return ids_log, fin, err
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        rc = lib.ctc_crf_beam_ids_launch(
-            probs.data_ptr(), init_states.data_ptr(), lengths.data_ptr(),
-            float(thr), B, T, S, Si, A1 - 1, K,
-            ids_log.data_ptr(), fin.data_ptr(), err.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_for(rc, "CRF beam kernel")
-    launches["crf_beam"] += 1
-    return ids_log, fin, err
+    return _warp_launch(probs, init_states, lengths, thr, B=B, T=T, S=S, Si=Si, A=A1 - 1,
+                        K=K, collapse=False, crf=True, rpb=rpb)
 
 
 def _crf_bounds(S, Si, A):
@@ -229,17 +298,19 @@ def traceback_kernel(fin, ids_log, *, T, K, A):
 
 
 def beam_search_kernel_batch(
-    probs, lengths, thr, *, beam_size, collapse_repeats=True, version=2, raw=False
+    probs, lengths, thr, *, beam_size, collapse_repeats=True, version=2, design=None,
+    raw=False,
 ):
     """Both kernels in turn; the output dict of
     ``beam_fast.beam_search_fast_batch`` (labels_rev, times_rev, count, err).
 
-    ``version`` picks the beam kernel (1, 2 or 3).  ``raw=True`` stops after
-    it and returns ``{"ids_log" [T, K, B], "fin" [B], "err" [B]}``, as
+    ``version`` picks the beam kernel (1, 2 or 3), ``design`` forces one of
+    version 2's (``beam_ids_kernel``).  ``raw=True`` stops after it and
+    returns ``{"ids_log" [T, K, B], "fin" [B], "err" [B]}``, as
     ``beam_search_pallas_batch(raw=True)`` returns the kernel's outputs."""
     ids_log, fin, err = beam_ids_kernel(
         probs, lengths, thr, beam_size=beam_size,
-        collapse_repeats=collapse_repeats, version=version,
+        collapse_repeats=collapse_repeats, version=version, design=design,
     )
     if raw:
         return {"ids_log": ids_log, "fin": fin, "err": err}
@@ -255,12 +326,15 @@ def beam_search_kernel_batch(
     }
 
 
-def crf_beam_search_kernel_batch(probs, init_states, lengths, thr, *, beam_size):
+def crf_beam_search_kernel_batch(probs, init_states, lengths, thr, *, beam_size, raw=False):
     """The CRF beam kernel then the traceback kernel; the output dict of
-    ``beam_fast.crf_beam_search_fast_batch``."""
+    ``beam_fast.crf_beam_search_fast_batch``.  ``raw=True`` stops after the
+    beam kernel, as ``beam_search_kernel_batch(raw=True)`` does."""
     ids_log, fin, err = crf_beam_ids_kernel(
         probs, init_states, lengths, thr, beam_size=beam_size
     )
+    if raw:
+        return {"ids_log": ids_log, "fin": fin, "err": err}
     T, A = probs.shape[1], probs.shape[3] - 1
     labels_rev, times_rev, count = traceback_kernel(
         fin, ids_log, T=T, K=int(beam_size), A=A

@@ -32,14 +32,16 @@ import torch
 from . import _build
 from . import beam as beam_ops
 from . import crf as crf_ops
-from .beam_cuda import MAX_A1, MAX_BEAM, _check, _crf_bounds, _raise_for
+from .beam_cuda import (
+    MAX_A1, MAX_BEAM, MAX_READS_PER_BLOCK, _check, _check_reads_per_block, _crf_bounds,
+    _raise_for,
+)
 
 #: kernel launches per wrapper since the last reset (plain integers)
 launches = {"exact": 0, "exact_crf": 0}
 
 _I64_MAX = 2**63 - 1
 REC_WORDS = 4  # int32 words of one node record (csrc: kRecWords)
-MAX_READS_PER_BLOCK = 8  # csrc: kMaxReadsPerBlock
 READS_PER_BLOCK = 4  # the default launch: one warp per read, four reads a block
 
 beam_search_exact_plain = beam_ops.beam_search_device_batch
@@ -62,14 +64,6 @@ def scratch_stride(N: int, A: int) -> int:
 def _new_scratch(B: int, stride: int, device) -> torch.Tensor:
     """The uninitialised scratch buffer of a launch, [B, stride] int32."""
     return torch.empty((B, stride), dtype=torch.int32, device=device)
-
-
-def _check_reads_per_block(rpb) -> int:
-    if isinstance(rpb, bool) or not isinstance(rpb, int) or not 1 <= rpb <= MAX_READS_PER_BLOCK:
-        raise ValueError(
-            f"reads_per_block must be an int in [1, {MAX_READS_PER_BLOCK}], got {rpb!r}"
-        )
-    return rpb
 
 
 def blocks_per_sm(K: int, A: int, *, crf: bool, reads_per_block: int = READS_PER_BLOCK) -> int:

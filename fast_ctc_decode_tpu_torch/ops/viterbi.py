@@ -16,18 +16,20 @@ Two assembly paths, as in the JAX package:
    hand-written kernel ``csrc/viterbi_runs_kernel.cu`` on a CUDA device,
    where a scatter-add's atomics would add in no fixed order).  The card and
    the CPU give the same bits.
- - ``assemble_host``: NumPy assembly from (labels, pmax) with f32 run sums
-   by ``np.add.reduceat``, used by the single-read parity API as the JAX
-   package does.  ``np.add.reduceat`` does not add an f32 run of 3 or
-   more terms left to right, so its last bits (and, rarely, a phred
-   character) may differ from the frame-ordered sum.
+ - ``assemble_host``: host assembly of one read, used by the single-read
+   API.  Its run means come from the batch path's own ``run_means`` at
+   B=1 (the kernel on a CUDA tensor, the plain version on a CPU tensor),
+   so they add in frame order and equal the batch path's bits.  The JAX
+   package sums these runs with ``np.add.reduceat``, which does not add an
+   f32 run of 3 or more terms left to right; where a run mean sits on a
+   phred rounding edge, the port's phred character differs from the JAX
+   API's by one.
 """
 
 from __future__ import annotations
 
 from typing import List, Tuple
 
-import numpy as np
 import torch
 
 from . import viterbi_cuda
@@ -57,14 +59,21 @@ def frame_runs(probs: torch.Tensor, lengths: torch.Tensor, *, collapse_repeats: 
     labels, pmax = viterbi_core(probs)
     labels = torch.where(in_range, labels, 0).contiguous()
     pmax = torch.where(in_range, pmax, 0.0).contiguous()
+    return (labels, pmax, *emit_segments(labels, collapse_repeats=collapse_repeats))
 
+
+def emit_segments(labels: torch.Tensor, *, collapse_repeats: bool = True):
+    """Each frame's emit flag and segment (the index of the most recent
+    emitting frame, -1 before the first) from [B, T] labels: (emit [B, T]
+    bool, seg [B, T] i32)."""
+    B = labels.shape[0]
     nonzero = labels != 0
     prev = torch.cat(
-        [torch.full((B, 1), -1, dtype=torch.int32, device=dev), labels[:, :-1]], 1
+        [torch.full((B, 1), -1, dtype=labels.dtype, device=labels.device), labels[:, :-1]], 1
     )
     emit = nonzero & (labels != prev) if collapse_repeats else nonzero
     seg = torch.cumsum(emit.to(torch.int32), 1, dtype=torch.int32) - 1
-    return labels, pmax, emit, seg.contiguous()
+    return emit, seg.contiguous()
 
 
 def viterbi_device_batch(
@@ -104,43 +113,36 @@ def emit_path(emit: torch.Tensor, seg: torch.Tensor):
 
 
 def assemble_host(
-    labels: np.ndarray,
-    pmax: np.ndarray,
+    labels: torch.Tensor,
+    pmax: torch.Tensor,
     alphabet: List[str],
     qstring: bool,
     qscale: float,
     qbias: float,
     collapse_repeats: bool,
 ) -> Tuple[str, List[int]]:
-    """Bit-exact host assembly from per-frame (label, max prob).
+    """One read's (sequence [+ quality], path) from its per-frame [T] labels
+    (i32) and max probabilities (f32), both on one device.
 
-    Follows the reference's f32 run accumulation (src/search.rs:341-380)
-    with np.add.reduceat, as the JAX package does; for runs of 3 or more
-    terms reduceat's order is not the reference's left to right.
+    The run means are ``viterbi_cuda.run_means`` at B=1 on that device: each
+    run's f32 sum added in frame order, as the reference accumulates it
+    (src/search.rs:341-380) and as the batch path does, bit for bit.  This
+    departs from the JAX package's ``assemble_host``, whose
+    ``np.add.reduceat`` does not add runs of 3 or more terms left to right:
+    on a read whose run mean sits on a phred rounding edge, one quality
+    character differs from the JAX API's.
     """
-    labels = np.asarray(labels, dtype=np.int64)
-    pmax = np.asarray(pmax, dtype=np.float32)
-    nonzero = labels != 0
-    if collapse_repeats:
-        prev = np.concatenate(([np.int64(-1)], labels[:-1]))
-        emit = nonzero & (labels != prev)
-    else:
-        emit = nonzero
-    path = np.nonzero(emit)[0]
-    seq = "".join(alphabet[int(l)] for l in labels[path])
-    if not qstring:
+    lab = labels.to(torch.int32).reshape(1, -1).contiguous()
+    emit, seg = emit_segments(lab, collapse_repeats=collapse_repeats)
+    path_t, n_t = emit_path(emit, seg)
+    n = int(n_t[0])
+    path = path_t[0, :n].cpu().numpy()
+    lab_host = lab[0].cpu().numpy()
+    seq = "".join(alphabet[int(l)] for l in lab_host[path])
+    if not qstring or n == 0:
         return seq, [int(i) for i in path]
-
-    n = len(path)
-    if n == 0:
-        return seq, []
-    nz_idx = np.nonzero(nonzero)[0]
-    # segment of each nonzero frame = index of the latest emit at or before it
-    seg_of_nz = np.searchsorted(path, nz_idx, side="right") - 1
-    boundaries = np.searchsorted(seg_of_nz, np.arange(n))
-    sums = np.add.reduceat(pmax[nz_idx], boundaries).astype(np.float32)
-    counts = np.diff(np.concatenate((boundaries, [len(nz_idx)])))
-    means = sums / counts.astype(np.float32)
+    pm = pmax.to(torch.float32).reshape(1, -1).contiguous()
+    means = viterbi_cuda.run_means(lab, pm, path_t, n_t)[0, :n].cpu().numpy()
     qints = phred_int_np(means, qscale, qbias)
     quality = "".join(chr(int(q) + 33) for q in qints)
     return seq + quality, [int(i) for i in path]

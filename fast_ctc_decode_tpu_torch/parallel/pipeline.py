@@ -169,10 +169,11 @@ class BatchViterbiDecoder:
     """Batched viterbi decoder on one device (argmax, emission and run-mean
     qualities on the device; strings on the host).
 
-    Run means are f32 scatter-adds: in frame order on the CPU (equal to the
-    JAX package's ``segment_sum``), in no fixed order on CUDA, where a
-    phred int may differ by 1 from the CPU run.  Tokens, paths and counts
-    are exact everywhere.
+    Run means add each run in frame order on every device (the plain
+    scatter-add on the CPU, the run-means kernel on CUDA;
+    ``ops/viterbi_cuda.py``), equal to the JAX package's ``segment_sum`` and
+    to ``api.viterbi_search``.  Tokens, paths and counts are exact
+    everywhere.
     """
 
     def __init__(

@@ -7,9 +7,16 @@ mismatch; then it times each version's beam kernel alone (``raw=True``: the
 forward beam, CUDA events) and the full pipeline (beam kernel + traceback
 kernel), median of ``iters`` runs, with reads/s.
 
+Version 2 is the redesigned kernel: at this tool's B=32768 it runs one
+thread per read with a one-pass selection (``beam_cuda.design_for``; below
+``beam_cuda.THREAD_MIN_B`` reads it runs one warp per read), while versions 1
+and 3 keep the first design, K selection rounds, as the yardstick.  All three
+must still agree bit for bit.
+
 The JAX tool also sweeps the Pallas ``(block_b, block_t)`` tiling; that is
-the TPU's VMEM blocking and has no counterpart here (one thread per read,
-block 128, the T loop inside the thread), so it is not carried over.
+the TPU's VMEM blocking and has no counterpart here (the T loop runs inside
+the thread or warp of a read), so it is not carried over;
+``tools/kernel_probe.py`` sweeps the batch size over both version-2 designs.
 
 Usage (on a CUDA card): ``python -m fast_ctc_decode_tpu_torch.tools.ab_bench [B] [T] [iters]``
 """

@@ -308,7 +308,7 @@ def test_kernel_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     assert os.path.exists(res.path) and res.seconds > 0
     lines = calls.read_text().splitlines()
     srcs = sorted(os.path.basename(p) for p in _build._sources()[0])
-    assert {"exact_beam_kernel.cu", "crf_beam_kernel.cu", "beam_kernel.cu"} <= set(srcs)
+    assert {"exact_beam_kernel.cu", "beam_warp_kernel.cu", "beam_kernel.cu"} <= set(srcs)
     compiled = sorted(os.path.basename(l.split()[-1]) for l in lines if " -c " in l)
     assert compiled == srcs  # one nvcc per source
     assert "-fmad=false" in lines[0] and "--use_fast_math" not in " ".join(lines)

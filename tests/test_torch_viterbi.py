@@ -207,3 +207,47 @@ def test_api_viterbi_and_crf_greedy_equal_jax(alphabet):
         assert port_api.crf_greedy_search(c[0], init[0], alphabet, qstring, device="cpu") == jax_api.crf_greedy_search(
             c[0], init[0], alphabet, qstring
         )
+
+
+@pytest.mark.parametrize("collapse", [True, False])
+def test_assemble_host_run_means_add_in_frame_order(collapse, monkeypatch):
+    """The single-read API's run means (``assemble_host``, the means it
+    hands to the phred rounding) equal a sequential f32 loop bit for bit on
+    long runs: frame order, as the reference and the batch path add.  (The
+    JAX package's ``np.add.reduceat`` fails this from 3-term runs on.)"""
+    x, _ = long_run_batch(4, 400, 31)
+    seen = []
+    real = port_viterbi.phred_int_np
+
+    def spy(means, qscale, qbias):
+        seen.append(np.array(means, dtype=np.float32))
+        return real(means, qscale, qbias)
+
+    monkeypatch.setattr(port_viterbi, "phred_int_np", spy)
+    for b in range(x.shape[0]):
+        labels, pmax = port_viterbi.viterbi_core(torch.from_numpy(x[b]))
+        port_viterbi.assemble_host(labels, pmax, list("NACGT"), True, 1.0, 0.0, collapse)
+        L, P = labels.numpy()[None], pmax.numpy()[None]
+        prev = np.concatenate(([[-1]], L[:, :-1]), 1)
+        emit = (L != 0) & (L != prev) if collapse else L != 0
+        n = int(emit.sum())
+        want = sequential_run_means(L, P, np.cumsum(emit, 1) - 1)[0, :n]
+        assert seen[-1].shape == (n,)
+        assert np.array_equal(seen[-1].view(np.int32), want.view(np.int32)), b
+    assert len(seen) == x.shape[0]
+
+
+@pytest.mark.parametrize("qscale, qbias", [(1.0, 0.0), (0.9, 0.3)])
+def test_api_viterbi_qstring_equals_batch_decoder_on_long_runs(qscale, qbias):
+    """``api.viterbi_search(..., qstring=True)`` and ``BatchViterbiDecoder``
+    give the same sequence, quality string and path on reads with long
+    collapsed runs: both sum the runs in frame order."""
+    B, T = 6, 400
+    x, lengths = long_run_batch(B, T, 41)
+    dec = port_pipeline.BatchViterbiDecoder("NACGT", T=T, qscale=qscale, qbias=qbias,
+                                            device="cpu")
+    batch = dec.decode(x, lengths, qstring=True)
+    for b in range(B):
+        got = port_api.viterbi_search(x[b, : lengths[b]], "NACGT", qstring=True, qscale=qscale,
+                                      qbias=qbias, device="cpu") if lengths[b] else ("", [])
+        assert tuple(got) == tuple(batch[b][:2]), b
