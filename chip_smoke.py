@@ -6,7 +6,8 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 or, to time the hash beam kernels (rows 1, 3, 4, 5 and 10, and row 1's
-wide instance) beside a parent commit's kernels in the same run, with the
+wide instance) and the traceback (row 2, at B=32768 and on the first 256
+reads of its log) beside a parent commit's kernels in the same run, with the
 parent's package unpacked in DIR (``git archive <commit>
 fast_ctc_decode_tpu_torch | tar -x -C DIR``), imported under another name and
 driven through its own wrappers (``ops/beam_cuda.py``,
@@ -25,9 +26,10 @@ Phases, each of which raises on failure (exit code non-zero):
   2. holds each 1D kernel against its plain PyTorch version on the card, bit
      for bit: the beam kernel's versions 1 and 3, version 2 in both designs
      (one thread per read; one warp per read at 1, 2, 4 or 8 reads a block
-     in turn) and the traceback, on the shapes of the CPU tests (a
-     +-inf/NaN batch, -0.0, zero lengths, beams 1/8/12/16, A+1 = 8) and at
-     B=1024, T=1000;
+     in turn) and the traceback's two routes (the sweep and the walk, at
+     1-8 warps a block) on the id log of each version-2 design, on the
+     shapes of the CPU tests (a +-inf/NaN batch, -0.0, zero lengths, beams
+     1/8/12/16, A+1 = 8) and at B=1024, T=1000;
   2b. the same for the CRF beam kernel (one warp per read, every case at 1,
      2, 4 and 8 reads a block) and the exact tree kernel (1D and
      CRF, random bits in the tree kernel's scratch memory): NaN, empty
@@ -51,11 +53,17 @@ Phases, each of which raises on failure (exit code non-zero):
      width, bit for bit; times both kernels (the beam kernel in both designs,
      its wide instance in both),
      ``decode_arrays``, ``decode`` and the plain engine there
-     (CUDA-synchronised medians of 5 runs); with ``--parent``, rows 1 (both
-     instances), 3, 4 and 10 beside the parent's kernels in turns (parent,
-     new, new, parent) after checking equal outputs; then
+     (CUDA-synchronised medians of 5 runs); holds both traceback routes to
+     the plain version on the main path's log, on its first 1 and 33 reads,
+     on logs of every kind of node id (``random_log``: the duplex slot
+     log's widths K=32/A=1 and K=4/A=8, and 1-8 warps a block) and at the
+     sweep's just-fits and the walk's just-misses, and times both routes at
+     B=32768 and on the first 256 reads; with ``--parent``, rows 1 (both
+     instances), 3, 4, 10 and 2 (both B) beside the parent's kernels in
+     turns (parent, new, new, parent) after checking equal outputs; then
      ``tools.kernel_probe`` (the main path's stages, both designs at B = 1
-     ... 32768, the warp design at 1-8 reads a block);
+     ... 32768, the warp design at 1-8 reads a block, both traceback routes
+     at B = 1 ... 32768 and the sweep's blocks and tiles at B=32768);
   6. drives the paths of the single-read API and the CRF family at full
      width: ``BatchBeamDecoder(engine="exact")`` (T=1000, B=1024),
      ``BatchCrfBeamDecoder`` with the CUDA engine (T=400, S=64, B=1024) and
@@ -69,7 +77,8 @@ Phases, each of which raises on failure (exit code non-zero):
      S=64); ``decode_many_crf`` resumed from a checkpoint equal to an
      uninterrupted run; ``api.beam_search(engine="fast")`` on the card (the
      warp design at B=1) equal to the batch sequences; ``tools.exact_probe``
-     at B=1024 (budgets and reads per block);
+     at B=1024 (budgets and reads per block); both traceback routes held to
+     the plain version and timed on the CRF path's log;
   7. times the new kernels against their plain versions (CUDA events), the
      CRF beam kernel at 1, 2, 4 and 8 reads a block (with ``--parent``: beside
      the parent's CRF kernel in turns), and the new decoders'
@@ -103,7 +112,8 @@ Phases, each of which raises on failure (exit code non-zero):
   11. the single-read duplex API on the card equals the batch results;
   12. times each duplex kernel beside its plain version on the same
      full-width shape (CUDA events; the plain versions once, they take
-     tens of seconds) and the duplex decoders' ``decode_arrays`` / ``decode``,
+     tens of seconds), both traceback routes on the slot kernel's
+     full-range log, and the duplex decoders' ``decode_arrays`` / ``decode``,
      the CRF tree kernel's launches on the constant-window full range alone
      (CUDA events around each launch inside ``decode``, summed), and holds
      the full-width kernel outputs to the plain ones;
@@ -146,6 +156,7 @@ import numpy as np
 ALPHABET = "NACGT"
 B_MAIN, T_MAIN, BEAM, THR = 32768, 1000, 5, 0.1
 WIDE_BEAM, WIDE_A1 = 16, 8  # version 2's wide instance <16, 7> at B_MAIN, T_MAIN
+B_SMALL_TB = 256  # row 2 also timed on the first B_SMALL_TB reads of the main log
 B_EXACT = 1024  # exact 1D at T_MAIN
 T_CRF, S_CRF, B_CRF, B_CRF_EXACT = 400, 64, 1024, 256
 B_VITERBI = 8192  # viterbi at T_MAIN
@@ -180,6 +191,32 @@ def make_crf_reads(B, T, S, A1, seed):
     return probs, init
 
 
+def random_log(T, K, A, B, seed):
+    """(fin [B], ids_log [T, K, B]) int32 arrays of every kind of node id:
+    parents at earlier steps (most), the root, empty slots, ids at the same
+    or a later step, ids past T and any int32.  The traceback must stop
+    where the plain sweep stops on any of them."""
+    rng = np.random.RandomState(seed)
+    KA = K * A
+
+    def ids(shape, t_now):
+        t_par = np.floor(rng.rand(*shape) * np.maximum(t_now, 1)).astype(np.int64)
+        out = t_par * KA + rng.randint(0, KA, size=shape)
+        kind = rng.rand(*shape)
+        out = np.where(kind < 0.04, -1, out)
+        out = np.where((kind >= 0.04) & (kind < 0.06), -2, out)
+        later = np.minimum(t_now + rng.randint(0, 3, size=shape), T + 1) * KA
+        out = np.where((kind >= 0.06) & (kind < 0.08), later + rng.randint(0, KA, size=shape), out)
+        return np.where((kind >= 0.08) & (kind < 0.09),
+                        rng.randint(-2**31, 2**31 - 1, size=shape, dtype=np.int64), out)
+
+    t_col = np.arange(T)[:, None, None]
+    log = ids((T, K, B), np.broadcast_to(t_col, (T, K, B)))
+    fin = ids((B,), np.full(B, T))
+    clip = lambda x: np.clip(x, -2**31, 2**31 - 1).astype(np.int32)
+    return clip(fin), np.ascontiguousarray(clip(log))
+
+
 def max_abs_diff(a, b):
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype mismatch {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
@@ -201,8 +238,10 @@ def median_ms(fn, torch, repeats=REPEATS):
     return statistics.median(times)
 
 
-def median_event_ms(fn, torch, repeats=REPEATS):
-    """Median device time of ``fn`` in ms between two CUDA events."""
+def median_event_ms(fn, torch, repeats=REPEATS, calls=1):
+    """Median device time of ``fn`` in ms between two CUDA events; with
+    ``calls`` > 1, per call of that many calls back to back between the
+    events (a sub-millisecond kernel then is not its wrapper's host work)."""
     fn()  # warm-up
     times = []
     for _ in range(repeats):
@@ -210,11 +249,15 @@ def median_event_ms(fn, torch, repeats=REPEATS):
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+TB_CALLS = 10  # row 2 (~0.1-0.5 ms) is timed over ten calls back to back
 
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W limit):
@@ -363,22 +406,24 @@ def parent_package(parent_dir, name="parent_fast_ctc_decode_tpu_torch"):
                             ("kernel_ablate", "tools.kernel_ablate"))})
 
 
-def turns_ms(torch, parent_fn, new_fn, same):
+def turns_ms(torch, parent_fn, new_fn, same, calls=1):
     """Time the parent's kernel and this tree's in turns (parent, new, new,
-    parent; each a median of REPEATS CUDA-event runs), after checking that
-    both give the same outputs (``same``).  Returns (parent_ms, new_ms), each
-    the mean of its two medians, and the four medians."""
+    parent; each a median of REPEATS CUDA-event runs of ``calls`` calls),
+    after checking that both give the same outputs (``same``).  Returns
+    (parent_ms, new_ms), each the mean of its two medians, and the four
+    medians."""
     if not same(parent_fn(), new_fn()):
         raise AssertionError("this tree's kernel and the parent's give different outputs")
     order = (parent_fn, new_fn, new_fn, parent_fn)
-    t = [median_event_ms(fn, torch) for fn in order]
+    t = [median_event_ms(fn, torch, calls=calls) for fn in order]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def parent_turns(torch, smi, parent, probs, lengths, wide):
-    """Rows 1, 3, 4 and 10 and version 2's wide instance beside the parent's
-    kernels on the same inputs, through each tree's own wrappers (``parent``
-    from ``parent_package``): {row: (parent ms, this tree's ms)}."""
+def parent_turns(torch, smi, parent, probs, lengths, wide, tb_logs):
+    """Rows 1, 3, 4 and 10, version 2's wide instance and row 2 (on each of
+    ``tb_logs``, (fin, ids_log) pairs) beside the parent's kernels on the
+    same inputs, through each tree's own wrappers (``parent`` from
+    ``parent_package``): {row: (parent ms, this tree's ms)}."""
     from fast_ctc_decode_tpu_torch.ops import beam_cuda
     from fast_ctc_decode_tpu_torch.tools import kernel_ablate
 
@@ -398,14 +443,22 @@ def parent_turns(torch, smi, parent, probs, lengths, wide):
         ("row 10 ablation", f"kernel (no phase stubbed) B={B // 2} T={T}",
          lambda m: tuple(m.run_ablate(pa, la, THR, beam_size=BEAM).values())),
     ]
+    for f, g in tb_logs:
+        b = f.shape[0]
+        rows.append((f"row 2 traceback{'' if b == B else f' B={b}'}",
+                     shape if b == B else f"T={T}",
+                     lambda m, f=f, g=g: m.traceback_kernel(f, g, T=T, K=BEAM,
+                                                            A=probs.shape[2] - 1)))
     out = {}
     for name, where, fn in rows:
         mods = (parent.kernel_ablate, kernel_ablate) if name == "row 10 ablation" else (
             parent.beam_cuda, beam_cuda)
-        old, new, t = turns_ms(torch, lambda: fn(mods[0]), lambda: fn(mods[1]), same)
+        calls = TB_CALLS if name.startswith("row 2") else 1
+        old, new, t = turns_ms(torch, lambda: fn(mods[0]), lambda: fn(mods[1]), same, calls)
         out[name] = (old, new)
         log(f"time {name} {where}: parent {old!r} ms, this tree {new!r} ms "
-            f"(turns parent/new/new/parent: {', '.join(f'{x:.3f}' for x in t)}) [{smi}]")
+            f"(turns parent/new/new/parent: {', '.join(f'{x:.3f}' for x in t)}"
+            f"{f'; {calls} calls back to back' if calls > 1 else ''}) [{smi}]")
     return out
 
 
@@ -432,6 +485,68 @@ def launch_event_ms(torch, module, name, run):
         setattr(module, name, real)
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in marks), len(marks)
+
+
+def traceback_parity(torch, fin, ids_log, A, what, routes=None, **kw):
+    """Both routes of the traceback kernel (or ``routes``) against its plain
+    version on one id log on the card: {route: max_abs_err}; raises on any
+    differing entry."""
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda
+
+    T, K, _ = ids_log.shape
+    want = beam_cuda.traceback_plain(fin, ids_log, T=T, K=K, A=A)
+    err = {}
+    for route in routes or beam_cuda.TRACEBACK_ROUTES:
+        got = beam_cuda.traceback_kernel(fin, ids_log, T=T, K=K, A=A, route=route, **kw)
+        err[route] = max(max_abs_diff(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    log(f"traceback parity {what}: max_abs_err {err}")
+    if any(err.values()):
+        raise AssertionError(f"traceback kernel != plain on {what}: {err}")
+    return err
+
+
+def traceback_edge_phase(torch, dev, fin, ids_log):
+    """Row 2 on the card beyond the paths' logs, both routes against the
+    plain version: B = 1 and 33 (slices of the main log), logs of every kind
+    of node id (``random_log``) at the duplex slot kernel's widths (K=32,
+    A=1; K=4, A=8) and at each block size, and the route's just-fits (the
+    sweep at the largest K whose one-step ring fits the default block) and
+    just-misses (the walk one K past it).  Returns the largest error."""
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda
+
+    A = len(ALPHABET) - 1
+    err = 0
+    for b in (1, 33):
+        e = traceback_parity(torch, fin[:b].contiguous(), ids_log[:, :, :b].contiguous(), A,
+                             f"main log B={b}")
+        err = max(err, *e.values())
+    cases = [(500, 32, 1, 256, 8, 2), (500, 4, 8, 256, 8, 4)]  # the duplex slot log's widths
+    cases += [(200, BEAM, A, 1000, w, w) for w in range(1, beam_cuda.MAX_TRACEBACK_WARPS + 1)]
+    for T, K, A_, B, warps, seed in cases:
+        f, g = (torch.from_numpy(x).to(dev) for x in random_log(T, K, A_, B, seed))
+        e = traceback_parity(torch, f, g, A_, f"random log T={T} K={K} A={A_} B={B}, "
+                             f"{warps} warps a block", warps=warps)
+        err = max(err, *e.values())
+    warps = beam_cuda.TRACEBACK_WARPS
+    k = 1
+    while beam_cuda.traceback_route(1, k + 1, warps=warps)[0] == "sweep":
+        k += 1
+    for K, route in ((k, "sweep"), (k + 1, "walk")):
+        if beam_cuda.traceback_route(50, K, warps=warps)[0] != route:
+            raise AssertionError(f"traceback route at K={K} is not {route}")
+        f, g = (torch.from_numpy(x).to(dev) for x in random_log(50, K, 1, 33, K))
+        e = traceback_parity(torch, f, g, 1, f"random log T=50 K={K} A=1 B=33 (the {route}'s "
+                             f"{'just-fits' if route == 'sweep' else 'just-misses'})",
+                             routes=(route,))
+        err = max(err, *e.values())
+    try:
+        beam_cuda.traceback_kernel(f, g, T=50, K=k + 1, A=1, route="sweep")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"the sweep took K={k + 1} past its shared memory")
+    return err
 
 
 def parity_cases(full_width=True):
@@ -924,9 +1039,11 @@ def duplex_launch_shapes(build_log):
 
 def duplex_kernel_times(torch, dev, smi, dn1, dn2, c1, i1, c2, i2, diag):
     """Phase 12's kernel part: each duplex kernel timed beside its plain
-    version on the same full-width shape and held to it there; returns
-    ({name: (kernel_ms, plain_ms)}, {name: bound})."""
-    from fast_ctc_decode_tpu_torch.ops import duplex_cuda, duplex_exact_cuda
+    version on the same full-width shape and held to it there, and the
+    traceback's routes held to their plain version and timed on the slot
+    kernel's full-range log; returns ({name: (kernel_ms, plain_ms)} with
+    "traceback": ({route: max_abs_err}, {route: ms}), {name: bound})."""
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda, duplex_cuda, duplex_exact_cuda
 
     diff, slot_run, slot_plain, tree_run = duplex_runners(duplex_cuda)
     full_env = np.stack([np.zeros(T_DUP, np.int64), np.full(T_DUP, T_DUP, np.int64)], 1)
@@ -946,6 +1063,16 @@ def duplex_kernel_times(torch, dev, smi, dn1, dn2, c1, i1, c2, i2, diag):
         if d:
             raise AssertionError(f"duplex slot kernel != plain at full width ({name})")
         rows[name] = (k_ms, p_ms)
+        if name == "slot full":  # row 2 on the slot kernel's full-range log
+            ids_log, fin, _ = got
+            A = len(ALPHABET) - 1
+            tb_err = traceback_parity(torch, fin, ids_log, A,
+                                      f"duplex slot full-range log {shape}")
+            tb_ms = {route: median_event_ms(lambda route=route: beam_cuda.traceback_kernel(
+                fin, ids_log, T=T_DUP, K=BEAM, A=A, route=route), torch, calls=TB_CALLS)
+                for route in beam_cuda.TRACEBACK_ROUTES}
+            log(f"time traceback on the duplex slot full-range log {shape}: {tb_ms} ms [{smi}]")
+            rows["traceback"] = (tb_err, tb_ms)
     for name, crf in (("tree", False), ("tree crf", True)):
         if crf:
             inp = duplex_inputs(torch, dev, c1, c2, diag, DUP_THR, crf=(i1, i2), tree=True)
@@ -970,7 +1097,9 @@ def duplex_kernel_times(torch, dev, smi, dn1, dn2, c1, i1, c2, i2, diag):
 
 
 def duplex_phases(torch, dev, smi, log_counts):
-    """Phases 8-12 (duplex); returns the two duplex kernels' JSON rows."""
+    """Phases 8-12 (duplex); returns the two duplex kernels' JSON rows and
+    row 2's part: {"err", "ms"} on the slot kernel's full-range log and
+    "launches" on the slot path."""
     from duplex_helpers import diag_env
     from fast_ctc_decode_tpu_torch import api, decode_many_duplex
 
@@ -1106,7 +1235,9 @@ def duplex_phases(torch, dev, smi, log_counts):
         f"{cfull_ms!r} ms (each: {', '.join(f'{t:.3f}' for t, _ in cfull)}) [{smi}]")
 
     src = "fast_ctc_decode_tpu_torch/csrc/"
-    return [
+    tb = {"err": rows["traceback"][0], "ms": rows["traceback"][1],
+          "launches": l_full["traceback"]}
+    return tb, [
         {"name": "duplex_slot_kernel", "route": "cuda", "source": src + "duplex_kernel.cu",
          "replaces": "fast_ctc_decode_tpu/ops/duplex_pallas.py:103",
          "launches": l_full["duplex"], "max_abs_err": err_slot,
@@ -1508,7 +1639,7 @@ def main(argv=None):
     # one plain function they compute; the warp design at 1, 2, 4, 8 reads
     # a block in turn
     err_beam = {1: 0, "thread": 0, "warp": 0, 3: 0}
-    err_tb = 0
+    err_tb = {route: 0 for route in beam_cuda.TRACEBACK_ROUTES}
     runs = ((1, None), (2, "thread"), (2, "warp"), (3, None))
     for i, (name, probs, lengths, thr, K, collapse) in enumerate(parity_cases()):
         p = torch.from_numpy(probs).to(dev)
@@ -1529,16 +1660,15 @@ def main(argv=None):
             got = beam_cuda.beam_search_kernel_batch(
                 p, ln, thr, beam_size=K, collapse_repeats=collapse, version=v, design=design)
             d_all = max(max_abs_diff(got[f], want[f]) for f in FIELDS)
-            if design == "thread":
-                tb_k = beam_cuda.traceback_kernel(fin_k, ids_k, T=T, K=K, A=A)
-                tb_p = beam_cuda.traceback_plain(fin_k, ids_k, T=T, K=K, A=A)
-                d_tb = max(max_abs_diff(x, y) for x, y in zip(tb_k, tb_p))
-                err_tb = max(err_tb, d_tb, d_all)
-                msg.append(f"traceback {d_tb}")
+            if design:  # both routes on the log of each version-2 design
+                d_tb = traceback_parity(torch, fin_k, ids_k, A, f"{name} ({design} design's log)",
+                                        warps=(1, 2, 4, 8)[i % 4], steps=(1, 3, 16, 32)[i % 4])
+                for route, d in d_tb.items():
+                    err_tb[route] = max(err_tb[route], d, d_all)
             torch.cuda.synchronize()
             key = design or v
             msg.append(f"{'v2 ' + design if design else f'v{v}'} beam {d_beam} dict {d_all}")
-            if d_beam or d_all or err_tb:
+            if d_beam or d_all:
                 raise AssertionError(f"kernel (version {v}, {design}) != plain on case {name}")
             err_beam[key] = max(err_beam[key], d_beam, d_all)
         log(f"parity {name} (warp design: {rpb} reads a block): max_abs_err {', '.join(msg)}, "
@@ -1562,11 +1692,14 @@ def main(argv=None):
     res = dec.decode(probs_d, lengths_d)
     main_s = time.perf_counter() - t0
     main_design = beam_cuda.design_for(B_MAIN)
-    launches = {k: beam_cuda.launches[k] for k in ("beam", "beam_warp", "traceback")}
+    launches = {k: beam_cuda.launches[k]
+                for k in ("beam", "beam_warp", *beam_cuda.TRACEBACK_ROUTES.values())}
+    main_route = beam_cuda.traceback_route(T_MAIN, BEAM)[0]
+    tb_counter = beam_cuda.TRACEBACK_ROUTES[main_route]
     log(f"main path: {B_MAIN} reads decoded in {main_s:.3f} s (first call), "
         f"launches {launches} (version 2, {main_design} design), peak device memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
-    if launches[beam_counter(main_design)] < 1 or launches["traceback"] < 1:
+    if launches[beam_counter(main_design)] < 1 or launches[tb_counter] < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if len(res) != B_MAIN or any(r[2] != 0 for r in res):
         raise AssertionError("main path: status codes not all OK")
@@ -1646,20 +1779,36 @@ def main(argv=None):
     if err_wide:
         raise AssertionError(f"beam kernel <16, 7> != plain at B={B_MAIN}: {err_wide_d}")
     del wide_plain
+    # row 2 on the main path's own log, both routes, then the edge cases
+    d_tb = traceback_parity(torch, fin, ids_log, len(ALPHABET) - 1, f"main log B={B_MAIN}")
+    for route, d in d_tb.items():
+        err_tb[route] = max(err_tb[route], d)
+    err_tb_edge = traceback_edge_phase(torch, dev, fin, ids_log)
+    fin_s, ids_s = fin[:B_SMALL_TB].contiguous(), ids_log[:, :, :B_SMALL_TB].contiguous()
+    tb_ms = {
+        (route, b): median_event_ms(lambda route=route, f=f, g=g: beam_cuda.traceback_kernel(
+            f, g, T=T_MAIN, K=BEAM, A=4, route=route), torch, calls=TB_CALLS)
+        for b, f, g in ((B_MAIN, fin, ids_log), (B_SMALL_TB, fin_s, ids_s))
+        for route in beam_cuda.TRACEBACK_ROUTES
+    }
+    for (route, b), t in tb_ms.items():
+        log(f"time traceback {route} B={b} T={T_MAIN}: {t!r} ms ({TB_CALLS} calls back to "
+            f"back) [{smi}]")
     ms = {
         "beam kernel": median_event_ms(
             lambda: beam_cuda.beam_ids_kernel(probs_d, lengths_d, THR, beam_size=BEAM), torch),
         "beam kernel, warp design": median_event_ms(
             lambda: beam_cuda.beam_ids_kernel(probs_d, lengths_d, THR, beam_size=BEAM,
                                               design="warp"), torch),
-        "traceback kernel": median_event_ms(
-            lambda: beam_cuda.traceback_kernel(fin, ids_log, T=T_MAIN, K=BEAM, A=4), torch),
+        "traceback kernel": tb_ms[(main_route, B_MAIN)],
         "decode_arrays": median_ms(lambda: dec.decode_arrays(probs_d, lengths_d), torch),
         "decode (with detok)": median_ms(lambda: dec.decode(probs_d, lengths_d), torch),
         "plain beam": median_event_ms(
             lambda: beam_cuda.beam_ids_plain(probs_d, lengths_d, THR, beam_size=BEAM), torch),
         "plain traceback": median_event_ms(
             lambda: beam_cuda.traceback_plain(fin, ids_log, T=T_MAIN, K=BEAM, A=4), torch),
+        "traceback kernel, one call": median_event_ms(
+            lambda: beam_cuda.traceback_kernel(fin, ids_log, T=T_MAIN, K=BEAM, A=4), torch),
         "plain engine": median_ms(
             lambda: beam_fast.beam_search_fast_batch(probs_d, lengths_d, THR, beam_size=BEAM),
             torch),
@@ -1671,21 +1820,26 @@ def main(argv=None):
             f"({B_MAIN / (t / 1e3):.1f} reads/s) [{smi}]")
     parent_ms = {}
     if parent is not None:
-        parent_ms = parent_turns(torch, smi, parent, probs_d, lengths_d, wide)
+        parent_ms = parent_turns(torch, smi, parent, probs_d, lengths_d, wide,
+                                 ((fin, ids_log), (fin_s, ids_s)))
     del wide
     probe = kernel_probe.run(B_MAIN, T_MAIN, device=dev)
     for line, _ in probe:
         log(line)
-    design_ms = {}
+    design_ms, tb_probe, tb_block = {}, {}, {}
     for _, r in probe:
         if r["what"] == "design":
             design_ms.setdefault(str(r["B"]), {})[r["design"]] = r["ms"]
+        elif r["what"] == "traceback":
+            tb_probe.setdefault(str(r["B"]), {})[r["route"]] = r["ms"]
+        elif r["what"] == "traceback_block":
+            tb_block[f"B={r['B']} {r['route']}, {r['warps']} warps, {r['steps']} steps"] = r["ms"]
     stages = profiling.reset_metrics().stages
     dec.decode(probs_d, lengths_d)
     log(f"decode stages (one call, s): {stages}; "
         f"native detok {'loaded' if native.get_lib() is not None else 'absent (Python path)'}")
 
-    del probs_d, lengths_d, ids_log, fin, out
+    del probs_d, lengths_d, ids_log, fin, out, fin_s, ids_s
     torch.cuda.empty_cache()
 
     def reset_counts():
@@ -1751,6 +1905,18 @@ def main(argv=None):
     path_launches.update(got)
     crf_oracle = lambda i: oracle.crf_beam_search(crf_probs[i], crf_init[i], ALPHABET, BEAM, THR)
     oracle_gate("CRF cuda", crf_res, crf_oracle, False)
+    crf_raw = beam_cuda.crf_beam_search_kernel_batch(crf_probs_d, crf_init_d, crf_len_d, THR,
+                                                     beam_size=BEAM, raw=True)
+    crf_fin, crf_log = crf_raw["fin"], crf_raw["ids_log"]
+    d_tb = traceback_parity(torch, crf_fin, crf_log, len(ALPHABET) - 1,
+                            f"CRF path log B={B_CRF} T={T_CRF} S={S_CRF}")
+    for route, d in d_tb.items():
+        err_tb[route] = max(err_tb[route], d)
+    tb_crf_ms = {route: median_event_ms(lambda route=route: beam_cuda.traceback_kernel(
+        crf_fin, crf_log, T=T_CRF, K=BEAM, A=len(ALPHABET) - 1, route=route), torch,
+        calls=TB_CALLS) for route in beam_cuda.TRACEBACK_ROUTES}
+    log(f"time traceback on the CRF path's log B={B_CRF} T={T_CRF}: {tb_crf_ms} ms [{smi}]")
+    del crf_raw, crf_fin, crf_log
 
     xc = slice(0, B_CRF_EXACT)
     xc_args = (crf_probs_d[xc].contiguous(), crf_init_d[xc].contiguous(), crf_len_d[xc])
@@ -1923,8 +2089,10 @@ def main(argv=None):
         B = int(name.split("B=")[1].split()[0])
         log(f"time {name}: {t!r} ms ({B / (t / 1e3):.1f} reads/s) [{smi}]")
 
-    duplex_rows = duplex_phases(
+    tb_dup, duplex_rows = duplex_phases(
         torch, dev, smi, types.SimpleNamespace(reset=reset_counts, read=counts))
+    for route, d in tb_dup["err"].items():
+        err_tb[route] = max(err_tb[route], d)
 
     # ---- phases 13-15: the A/B path, the ablation path, serving ----
     ab_launches, ab_ms = ab_phase(torch, dev, smi)
@@ -1939,6 +2107,8 @@ def main(argv=None):
     main_len = np.full(B_MAIN, T_MAIN)
     b_beam = beam_bound(main_len, T_MAIN, BEAM, A1)
     b_tb = bound(4 * (B_MAIN + int(counts_main.sum()) + 2 * B_MAIN * T_MAIN + B_MAIN), 0)
+    # the sweep's own floor: the whole [T, K, B] log read once, not 4 B an emit
+    b_sweep = bound(4 * (B_MAIN + T_MAIN * BEAM * B_MAIN + 2 * B_MAIN * T_MAIN + B_MAIN), 0)
     b_crf = beam_bound(np.full(B_CRF, T_CRF), T_CRF, BEAM, A1, rows_per_step=BEAM,
                        extra_in=4 * B_CRF * S_CRF)
     b_exact = beam_bound(np.full(B_EXACT, T_MAIN), T_MAIN, BEAM, A1,
@@ -1974,8 +2144,21 @@ def main(argv=None):
             wide_parent_ms=old_ms("row 1 beam v2 <16, 7>"),
             registers=regs("beam_ids_kernel<5, 4> v2", "beam_ids_kernel<16, 7> v2",
                            "beam_warp_kernel<5, 4>")),
-        row("traceback_kernel", "traceback_kernel.cu", bp + "967", launches["traceback"],
-            err_tb, ms["traceback kernel"], ms["plain traceback"], b_tb),
+        row("traceback_kernel", "traceback_kernel.cu", bp + "967", launches[tb_counter],
+            max(*err_tb.values(), err_tb_edge), ms["traceback kernel"], ms["plain traceback"],
+            b_tb, design=main_route, warps=beam_cuda.TRACEBACK_WARPS,
+            steps=beam_cuda.traceback_route(T_MAIN, BEAM)[1], max_abs_err_by_route=err_tb,
+            edge_max_abs_err=err_tb_edge,
+            design_ms={route: tb_ms[(route, B_MAIN)] for route in beam_cuda.TRACEBACK_ROUTES},
+            parent_ms=old_ms("row 2 traceback"),
+            small_b_ms={"B": B_SMALL_TB, "parent": old_ms(f"row 2 traceback B={B_SMALL_TB}"),
+                        **{route: tb_ms[(route, B_SMALL_TB)]
+                           for route in beam_cuda.TRACEBACK_ROUTES}},
+            one_call_ms=ms["traceback kernel, one call"], calls_timed=TB_CALLS,
+            crf_ms=tb_crf_ms, duplex_slot_ms=tb_dup["ms"],
+            path_launches={"main": launches[tb_counter], "crf_beam": path_launches["traceback"],
+                           "duplex_slot": tb_dup["launches"]},
+            sweep_floor_ms=b_sweep[0], probe_ms=tb_probe, block_ms=tb_block),
         row("beam_ids_kernel_v1", "beam_v1_kernel.cu", bp + "93", ab_launches["beam_v1"],
             err_beam[1], ab_ms[(1, "raw")], ms["plain beam"], b_beam, version=1,
             parent_ms=old_ms("row 3 beam v1"), registers=regs("beam_ids_kernel<5, 4> v1")),

@@ -149,7 +149,7 @@ SIGNATURES = {
     "ctc_beam_ids_v1_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ctc_beam_ids_v3_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ctc_beam_ablate_launch": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "ctc_traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ctc_traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P],
     "ctc_beam_warp_launch": [
         _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
     ],

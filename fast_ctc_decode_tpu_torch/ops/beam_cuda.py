@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the batched hash-identity beam paths (1D and
 CRF), with their plain versions.
 
-Six kernels, built from ``csrc/`` by ``ops/_build.py`` and launched through
+The kernels, built from ``csrc/`` by ``ops/_build.py`` and launched through
 ctypes on PyTorch's current stream:
 
  - ``beam_ids_kernel`` launches one of three versions of the fused T-loop
@@ -28,9 +28,15 @@ ctypes on PyTorch's current stream:
    versions 1 and 3 keep the first design as its yardstick.
  - ``traceback_kernel`` (``csrc/traceback_kernel.cu``) replaces
    ``beam_pallas.py::_traceback_kernel`` plus the key sort of
-   ``beam_fast._sort_unpack_keys``: a direct walk of the id log, one thread
-   per read.  Plain version: ``beam_fast._traceback_scan_batch``.  It walks
-   the CRF id log and the duplex slot kernel's id log too (same id coding).
+   ``beam_fast._sort_unpack_keys``: one warp per 32 reads, one lane a read,
+   emits staged in shared memory and written in aligned 128-byte chunks of
+   each row.  Two
+   routes, chosen by ``traceback_route`` from the kernel's shared-memory
+   arithmetic: the sweep streams the log backward through a ring of tiles
+   in shared memory, in coalesced 128-byte runs; the walk, for a K whose
+   one-step ring does not fit, gathers each parent from global memory.
+   Plain version: ``beam_fast._traceback_scan_batch``.  It walks the CRF id
+   log and the duplex slot kernel's id log too (same id coding).
  - ``crf_beam_ids_kernel`` (``csrc/beam_warp_kernel.cu``, CRF instances)
    replaces ``beam_pallas.py::_crf_beam_kernel``: one warp per read, each
    tip's pairs loading its own state's row.  Plain version:
@@ -51,9 +57,11 @@ from . import beam_fast
 
 #: kernel launches per wrapper since the last reset (plain integers); "beam"
 #: counts version 2 one thread per read, "beam_warp" version 2 one warp per
-#: read, "beam_v1" / "beam_v3" the A/B versions
+#: read, "beam_v1" / "beam_v3" the A/B versions, "traceback" the traceback's
+#: sweep, "traceback_walk" its walk
 launches = {
-    "beam": 0, "beam_warp": 0, "beam_v1": 0, "beam_v3": 0, "traceback": 0, "crf_beam": 0,
+    "beam": 0, "beam_warp": 0, "beam_v1": 0, "beam_v3": 0, "traceback": 0, "traceback_walk": 0,
+    "crf_beam": 0,
 }
 
 #: version -> (C launch function, launch counter)
@@ -71,6 +79,17 @@ THREAD_MIN_B = 8192
 DESIGNS = ("thread", "warp")
 MAX_READS_PER_BLOCK = 8  # csrc/beam_warp_kernel.cu: kMaxReadsPerBlock
 READS_PER_BLOCK = 4  # the warp kernel's default launch: four reads a block
+
+#: the traceback's routes (``csrc/traceback_kernel.cu``) -> launch counter
+TRACEBACK_ROUTES = {"sweep": "traceback", "walk": "traceback_walk"}
+TRACEBACK_CHUNK = 32  # kChunk: entries of one aligned store, and the most steps a tile
+TRACEBACK_RING = 4  # kRing: tiles of the sweep a warp holds
+TRACEBACK_SMEM_LIMIT = 227 * 1024  # kSmemLimit: dynamic bytes a block (H100)
+MAX_TRACEBACK_WARPS = 8  # kMaxWarps: warps (32 reads each) a block
+#: the traceback's default block and tile (set from ``tools/kernel_probe.py``'s times
+#: at B=32768, where 4 warps of 6-step tiles keep all 1,024 warps resident at once)
+TRACEBACK_WARPS = 4
+TRACEBACK_STEPS = 6
 
 beam_ids_plain = beam_fast.beam_search_ids_batch
 crf_beam_ids_plain = beam_fast.crf_beam_search_ids_batch
@@ -260,14 +279,43 @@ def _crf_bounds(S, Si, A):
         raise ValueError("max(S, Si) * A overflows the int32 transition states")
 
 
-def traceback_kernel(fin, ids_log, *, T, K, A):
+def traceback_smem_bytes(K: int, warps: int, steps: int) -> int:
+    """Dynamic shared memory of a traceback block of ``warps`` warps: each
+    warp's staged emits and, for the sweep (``steps`` > 0), its ring of
+    ``TRACEBACK_RING`` tiles of ``steps`` steps (``csrc/traceback_kernel.cu``:
+    ``ctc_traceback_smem_bytes``)."""
+    return warps * (32 * (2 * TRACEBACK_CHUNK + 1) + TRACEBACK_RING * steps * K * 32) * 4
+
+
+def traceback_route(T: int, K: int, *, warps: int = TRACEBACK_WARPS,
+                    steps: int = TRACEBACK_STEPS):
+    """``(route, steps)`` the traceback takes for a [T, K, B] log at
+    ``warps`` warps a block: the sweep with as many steps a tile as fit, up
+    to ``steps`` (and T); the walk, with 0, where even a one-step ring does
+    not fit the block's shared memory."""
+    for name, value, top in (("warps", warps, MAX_TRACEBACK_WARPS),
+                             ("steps", steps, TRACEBACK_CHUNK)):
+        if isinstance(value, bool) or not isinstance(value, int) or not 1 <= value <= top:
+            raise ValueError(f"{name} must be an int in [1, {top}], got {value!r}")
+    room = TRACEBACK_SMEM_LIMIT - traceback_smem_bytes(K, warps, 0)
+    fit = room // (traceback_smem_bytes(K, warps, 1) - traceback_smem_bytes(K, warps, 0))
+    if fit < 1:
+        return "walk", 0
+    return "sweep", min(steps, max(T, 1), fit)
+
+
+def traceback_kernel(fin, ids_log, *, T, K, A, route=None, warps=TRACEBACK_WARPS,
+                     steps=TRACEBACK_STEPS):
     """Walk the [T, K, B] id log: ``(labels_rev [B, T], times_rev [B, T],
     count [B])``, all int32, emits leaf-first and -1 padded.
 
     Any position-coded log: the 1D and CRF beams' and the duplex slot
     kernel's (``ops/duplex_cuda.py``, where K*A <= 32 but K or A+1 may pass
-    the beam kernels' 16 / 8).  The walk keeps no per-thread arrays, so its
-    only bound is int32 node ids: T*K*A < 2**31."""
+    the beam kernels' 16 / 8).  Its only input bound is int32 node ids:
+    T*K*A < 2**31.  On a CUDA tensor it runs ``traceback_route(T, K,
+    warps=, steps=)`` unless ``route`` ("sweep" or "walk") forces one (for
+    the probe, the tests and ``chip_smoke.py``; the decoders never pass
+    it); a forced sweep must fit.  ``warps`` (1..8) sets the block."""
     if not isinstance(ids_log, torch.Tensor) or ids_log.dim() != 3:
         raise ValueError("ids_log must be a [T, K, B] torch.Tensor")
     B = ids_log.shape[2]
@@ -277,8 +325,20 @@ def traceback_kernel(fin, ids_log, *, T, K, A):
         raise ValueError(f"K and A must be >= 1, got {K}, {A}")
     if T * K * A > beam_fast._I32_MAX:
         raise ValueError("T * beam_size * A overflows the int32 node ids")
+    if route is not None and route not in TRACEBACK_ROUTES:
+        raise ValueError(f"route must be None or one of {tuple(TRACEBACK_ROUTES)}, got {route!r}")
+    fits, fit_steps = traceback_route(T, K, warps=warps, steps=steps)
+    if route == "sweep" and fits != "sweep":
+        raise ValueError(f"the sweep's one-step ring does not fit at K={K}, {warps} warps a block "
+                         f"({traceback_smem_bytes(K, warps, 1)} > {TRACEBACK_SMEM_LIMIT} bytes)")
     if ids_log.device.type == "cpu":
         return traceback_plain(fin, ids_log, T=T, K=K, A=A)
+    return _traceback_launch(fin, ids_log, B=B, T=T, K=K, A=A, route=route or fits,
+                             warps=warps, steps=fit_steps)
+
+
+def _traceback_launch(fin, ids_log, *, B, T, K, A, route, warps, steps):
+    """One launch of ``csrc/traceback_kernel.cu`` on ``route``."""
     dev = ids_log.device
     labels_rev = torch.empty((B, T), dtype=torch.int32, device=dev)
     times_rev = torch.empty((B, T), dtype=torch.int32, device=dev)
@@ -290,10 +350,11 @@ def traceback_kernel(fin, ids_log, *, T, K, A):
         rc = lib.ctc_traceback_launch(
             fin.data_ptr(), ids_log.data_ptr(), B, T, K, A,
             labels_rev.data_ptr(), times_rev.data_ptr(), count.data_ptr(),
+            0 if route == "sweep" else 1, warps, steps,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_for(rc, "traceback kernel")
-    launches["traceback"] += 1
+    _raise_for(rc, f"traceback kernel ({route})")
+    launches[TRACEBACK_ROUTES[route]] += 1
     return labels_rev, times_rev, count
 
 

@@ -161,3 +161,22 @@ def test_kernel_probe_quick_runs_on_the_cpu():
     lines = [line for line, r in kernel_probe.run(8, 20, device="cpu", iters=1, sweep_b=(2,),
                                                   rpb_b=2) if "ms" in r]
     assert lines and all("host clock" in line for line in lines)  # never a device time
+
+
+def test_kernel_probe_quick_sweeps_the_traceback():
+    from fast_ctc_decode_tpu_torch.tools import kernel_probe
+
+    rows = [r for _, r in kernel_probe.main(["--quick", "--device", "cpu"])]
+    routes = list(beam_cuda.TRACEBACK_ROUTES)
+    assert [(r["B"], r["route"]) for r in rows if r["what"] == "traceback"] == [
+        (b, route) for b in (1, 8) for route in routes]
+    faster = [r for r in rows if r["what"] == "traceback_faster"]
+    assert [r["B"] for r in faster] == [1, 8] and all(r["routed"] == "sweep" for r in faster)
+    blocks = [(r["route"], r["warps"], r["steps"]) for r in rows if r["what"] == "traceback_block"]
+    # the steps a tile that fit (T = 50 at --quick), once each, then the walk, per block size
+    fit = lambda w: sorted({beam_cuda.traceback_route(50, 5, warps=w, steps=st)[1]
+                            for st in (4, 32)})
+    assert fit(1) == [4, 32] and fit(4)[0] == 4 and fit(4)[1] < 32
+    assert blocks == [(route, w, st) for w in (1, 4)
+                      for route, st in [("sweep", st) for st in fit(w)] + [("walk", 0)]]
+    assert all(r["B"] == 8 and r["ms"] > 0 for r in rows if r["what"] == "traceback_block")
