@@ -18,11 +18,13 @@ driven through its own wrappers (``ops/beam_cuda.py``,
 Phases, each of which raises on failure (exit code non-zero):
   1. builds the CUDA kernels from ``fast_ctc_decode_tpu_torch/csrc`` with nvcc
      (sm_90a, one compiler per source, all at once) and prints the card, the
-     versions, the build time, ptxas's register/spill lines and, for the two
-     duplex kernels and both instances of the exact tree and warp beam
-     kernels, block size, shared memory and blocks per SM (with ``--parent``:
-     the parent's kernels built too, and the hash beam instances' registers
-     beside the parent's);
+     versions, the build time, ptxas's register/spill lines, the SASS
+     instructions in each thread-per-read hash beam instance's step loop
+     (``cuobjdump``) and, for the two duplex kernels and both instances of
+     the exact tree and warp beam kernels, block size, shared memory and
+     blocks per SM (with ``--parent``: the parent's kernels built too, and
+     the hash beam instances' registers and SASS step loops beside the
+     parent's);
   2. holds each 1D kernel against its plain PyTorch version on the card, bit
      for bit: the beam kernel's versions 1 and 3, version 2 in both designs
      (one thread per read; one warp per read at 1, 2, 4 or 8 reads a block
@@ -49,17 +51,17 @@ Phases, each of which raises on failure (exit code non-zero):
      grow) and checks the result against an uninterrupted run;
   5. holds the beam kernel to the plain version on the main path's inputs
      (B=32768, T=1000) in both designs, and its wide instance (one thread
-     per read, beam 16, A+1 = 8; and one warp per read) on inputs of that
-     width, bit for bit; times both kernels (the beam kernel in both designs,
-     its wide instance in both),
+     per read, beam 16, A+1 = 8; and one warp per read) and version 1's wide
+     instance on inputs of that width, bit for bit; times both kernels (the
+     beam kernel in both designs, its wide instance in both, version 1's),
      ``decode_arrays``, ``decode`` and the plain engine there
      (CUDA-synchronised medians of 5 runs); holds both traceback routes to
      the plain version on the main path's log, on its first 1 and 33 reads,
      on logs of every kind of node id (``random_log``: the duplex slot
      log's widths K=32/A=1 and K=4/A=8, and 1-8 warps a block) and at the
      sweep's just-fits and the walk's just-misses, and times both routes at
-     B=32768 and on the first 256 reads; with ``--parent``, rows 1 (both
-     instances), 3, 4, 10 and 2 (both B) beside the parent's kernels in
+     B=32768 and on the first 256 reads; with ``--parent``, rows 1 and 3
+     (both instances), 4, 10 and 2 (both B) beside the parent's kernels in
      turns (parent, new, new, parent) after checking equal outputs; then
      ``tools.kernel_probe`` (the main path's stages, both designs at B = 1
      ... 32768, the warp design at 1-8 reads a block, both traceback routes
@@ -117,12 +119,15 @@ Phases, each of which raises on failure (exit code non-zero):
      the CRF tree kernel's launches on the constant-window full range alone
      (CUDA events around each launch inside ``decode``, summed), and holds
      the full-width kernel outputs to the plain ones;
-  13. the A/B path (``tools.ab_bench``) at B=32768, T=1000: versions 1, 2
-     and 3 equal on all four fields, each launched; each version's kernel
-     and full pipeline timed, and ``BatchBeamDecoder.decode`` (version 2);
-  14. the ablation path (``tools.kernel_ablate``): each of the nine phase
-     sets on the kernel equals ``ablate_plain`` (fin, err) at B=256, T=200,
-     the unstubbed kernel equals version 1, then all nine are timed at
+  13. the A/B path (``tools.ab_bench``) at B=32768, T=1000: versions 1
+     (own-hash, one-pass selection), 2 (parent-hash, one-pass selection) and
+     3 (a-major, K selection rounds) equal on all four fields, each
+     launched; each version's kernel and full pipeline timed, and
+     ``BatchBeamDecoder.decode`` (version 2);
+  14. the ablation path (``tools.kernel_ablate``, version 1's one-pass body
+     with phases stubbed): each of the nine phase sets on the kernel equals
+     ``ablate_plain`` (fin, err) and the unstubbed kernel equals version 1,
+     at B=256, T=200 and at B=16384, T=1000, then all nine are timed at
      B=16384, T=1000 with their deltas;
   15. the JSON/HTTP service on the card with micro-batching, on a free
      127.0.0.1 port: a B=256, T=1000 beam batch request equal to
@@ -155,7 +160,7 @@ import numpy as np
 
 ALPHABET = "NACGT"
 B_MAIN, T_MAIN, BEAM, THR = 32768, 1000, 5, 0.1
-WIDE_BEAM, WIDE_A1 = 16, 8  # version 2's wide instance <16, 7> at B_MAIN, T_MAIN
+WIDE_BEAM, WIDE_A1 = 16, 8  # the wide instance <16, 7> (versions 1 and 2) at B_MAIN, T_MAIN
 B_SMALL_TB = 256  # row 2 also timed on the first B_SMALL_TB reads of the main log
 B_EXACT = 1024  # exact 1D at T_MAIN
 T_CRF, S_CRF, B_CRF, B_CRF_EXACT = 400, 64, 1024, 256
@@ -355,9 +360,9 @@ def beam_kernel_registers(build_log):
 
 def beam_launch_shapes(build_log, parent_log=None):
     """Log the hash beam kernels' registers and spills, the warp kernel's
-    blocks per SM, and, given the parent commit's build log, whether the
-    first-design instances (versions 1 and 3, the ablation sets) kept the
-    parent's registers.  Returns {instance: (registers, spills)}."""
+    blocks per SM, and, given the parent commit's build log, each instance's
+    registers beside the parent's ("(equal)" where they match).  Returns
+    {instance: (registers, spills)}."""
     from fast_ctc_decode_tpu_torch.ops import beam_cuda
 
     regs = beam_kernel_registers(build_log)
@@ -378,6 +383,63 @@ def beam_launch_shapes(build_log, parent_log=None):
                 f"{'gone' if now is None else f'{now[0]} registers, {now[1]} bytes spilled'}"
                 f"{' (equal)' if now == (r, sp) else ''}")
     return regs
+
+
+def sass_step_counts(lib_path):
+    """{instance: (instructions in the step loop, instructions in all)} of
+    the one-thread-per-read hash beam kernels (the names of
+    ``beam_kernel_registers``), from ``cuobjdump -sass`` of the built library.
+    The step loop is the longest backward branch's span: the loop over t,
+    whose body the narrow instances unroll whole.  {} where cuobjdump is
+    missing."""
+    from fast_ctc_decode_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, name, addrs, back = {}, None, [], []
+
+    def close():
+        if name is not None and addrs:
+            span = max(((a - t) // 16 + 1 for a, t in back), default=0)
+            out[name] = (span, len(addrs))
+
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            fn = BEAM_ENTRY.search(m.group(1))
+            name, addrs, back = None, [], []
+            if fn:
+                kmax, amax, crf, v, abl = fn.groups()
+                name = f"beam_ids_kernel<{kmax}, {amax}>{' CRF' if crf == '1' else ''} v{v}"
+                name += f" ablate {abl}" if abl != "0" else ""
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and name is not None:
+            addr = int(m.group(1), 16)
+            addrs.append(addr)
+            target = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)\s*$", m.group(2))
+            if target and int(target.group(1), 16) < addr:
+                back.append((addr, int(target.group(1), 16)))
+    close()
+    return out
+
+
+def beam_sass_steps(lib_path, parent_path=None):
+    """Log each thread-per-read hash beam instance's SASS step loop (and the
+    parent's beside it).  Returns {instance: (step, total)}."""
+    steps = sass_step_counts(lib_path)
+    old = sass_step_counts(parent_path) if parent_path else {}
+    if not steps:
+        log("sass: not measured (no cuobjdump beside nvcc)")
+    for name, (step, total) in sorted(steps.items()):
+        was = old.get(name)
+        log(f"sass {name}: {step} instructions in the step loop, {total} in all"
+            + (f"; parent {was[0]} / {was[1]}" if was else ""))
+    return steps
 
 
 def beam_counter(design):
@@ -420,7 +482,7 @@ def turns_ms(torch, parent_fn, new_fn, same, calls=1):
 
 
 def parent_turns(torch, smi, parent, probs, lengths, wide, tb_logs):
-    """Rows 1, 3, 4 and 10, version 2's wide instance and row 2 (on each of
+    """Rows 1, 3, 4 and 10, the wide instances of versions 2 and 1, and row 2 (on each of
     ``tb_logs``, (fin, ids_log) pairs) beside the parent's kernels on the
     same inputs, through each tree's own wrappers (``parent`` from
     ``parent_package``): {row: (parent ms, this tree's ms)}."""
@@ -438,6 +500,8 @@ def parent_turns(torch, smi, parent, probs, lengths, wide, tb_logs):
          lambda m: m.beam_ids_kernel(wide, lengths, THR, beam_size=WIDE_BEAM)),
         ("row 3 beam v1", shape, lambda m: m.beam_ids_kernel(
             probs, lengths, THR, beam_size=BEAM, version=1)),
+        ("row 3 beam v1 <16, 7>", f"beam {WIDE_BEAM} A+1={WIDE_A1} {shape}",
+         lambda m: m.beam_ids_kernel(wide, lengths, THR, beam_size=WIDE_BEAM, version=1)),
         ("row 4 beam v3", shape, lambda m: m.beam_ids_kernel(
             probs, lengths, THR, beam_size=BEAM, version=3)),
         ("row 10 ablation", f"kernel (no phase stubbed) B={B // 2} T={T}",
@@ -1298,32 +1362,44 @@ def ab_phase(torch, dev, smi):
 
 def ablate_phase(torch, dev, smi):
     """Phase 14: the ablation path.  Each of the tool's nine sets on the
-    kernel equals ``ablate_plain`` (fin, err) at B=256, T=200; the whole
-    kernel (no phase stubbed) equals version 1; then ``tools.kernel_ablate``
-    times all nine at its default B=16384, T=1000."""
+    kernel (version 1's one-pass body with phases stubbed) equals
+    ``ablate_plain`` (fin, err), and the whole kernel (no phase stubbed)
+    equals version 1, at B=256, T=200 (ragged and zero lengths) and at the
+    tool's default B=16384, T=1000; then ``tools.kernel_ablate`` times all
+    nine at that shape."""
     from fast_ctc_decode_tpu_torch.ops import beam_cuda
     from fast_ctc_decode_tpu_torch.tools import kernel_ablate as ka
 
+    def parity(p, ln, what):
+        """Max fin/err difference of the nine sets against ``ablate_plain``
+        (raises on any), and the plain version's one-call ms of each set."""
+        worst, plain = 0, {}
+        for ab in ka.SETS:
+            got = ka.run_ablate(p, ln, THR, beam_size=BEAM, ablate=ab)
+            plain[ab], want = once_event_ms(
+                lambda ab=ab: ka.ablate_plain(p, ln, THR, beam_size=BEAM, ablate=ab), torch)
+            d = max(max_abs_diff(got[k], want[k]) for k in ("fin", "err"))
+            log(f"parity ablate {ab or 'none'} {what}: fin/err max_abs_err {d}, err codes "
+                f"{sorted(set(got['err'].tolist()))}")
+            if d:
+                raise AssertionError(f"ablation kernel != ablate_plain for set {ab!r} at {what}")
+            worst = max(worst, d)
+        _, fin1, err1 = beam_cuda.beam_ids_kernel(p, ln, THR, beam_size=BEAM, version=1)
+        whole = ka.run_ablate(p, ln, THR, beam_size=BEAM)
+        if not (torch.equal(whole["fin"], fin1) and torch.equal(whole["err"], err1)):
+            raise AssertionError(f"the ablation kernel with nothing stubbed differs from "
+                                 f"version 1 at {what}")
+        log(f"parity ablate none {what}: equal to version 1 (fin, err)")
+        return worst, plain
+
     p = torch.from_numpy(make_reads(256, 200, len(ALPHABET), 80)).to(dev)
     ln = torch.from_numpy(np.random.RandomState(81).randint(0, 201, 256).astype(np.int32)).to(dev)
-    err = 0
-    for ab in ka.SETS:
-        got = ka.run_ablate(p, ln, THR, beam_size=BEAM, ablate=ab)
-        want = ka.ablate_plain(p, ln, THR, beam_size=BEAM, ablate=ab)
-        d = max(max_abs_diff(got[k], want[k]) for k in ("fin", "err"))
-        torch.cuda.synchronize()
-        log(f"parity ablate {ab or 'none'} B=256 T=200: fin/err max_abs_err {d}, err codes "
-            f"{sorted(set(got['err'].tolist()))}")
-        if d:
-            raise AssertionError(f"ablation kernel != ablate_plain for set {ab!r}")
-        err = max(err, d)
-    _, fin1, err1 = beam_cuda.beam_ids_kernel(p, ln, THR, beam_size=BEAM, version=1)
-    whole = ka.run_ablate(p, ln, THR, beam_size=BEAM)
-    if not (torch.equal(whole["fin"], fin1) and torch.equal(whole["err"], err1)):
-        raise AssertionError("the ablation kernel with nothing stubbed differs from version 1")
+    err, _ = parity(p, ln, "B=256 T=200")
     B, T = 16384, 1000
     pd = torch.from_numpy(make_reads(B, T, len(ALPHABET), 42)).to(dev)
     ld = torch.full((B,), T, dtype=torch.int32, device=dev)
+    d, plain = parity(pd, ld, f"B={B} T={T}")
+    err = max(err, d)
     torch.cuda.synchronize()
     ka.launches["ablate"] = 0
     ms = ka.time_sets(pd, ld, THR, beam_size=BEAM)
@@ -1334,7 +1410,7 @@ def ablate_phase(torch, dev, smi):
     for ab, t in ms.items():
         log(f"time ablate={ab or 'none':12s} B={B} T={T}: {t!r} ms, delta "
             f"{ms[''] - t:+.3f} ms [{smi}]")
-    plain_ms, _ = once_event_ms(lambda: ka.ablate_plain(pd, ld, THR, beam_size=BEAM), torch)
+    plain_ms = plain[""]
     log(f"time ablate_plain (none) B={B} T={T}: {plain_ms!r} ms (one call) [{smi}]")
     row = {"launches": launches, "max_abs_err": err, "ms": ms[""], "plain_ms": plain_ms,
            "bound": beam_bound(np.full(B, T), T, BEAM, len(ALPHABET)),
@@ -1633,6 +1709,7 @@ def main(argv=None):
         parent.build.load_library()
         log(f"parent kernels from {parent_dir}: built in {time.perf_counter() - t0:.2f} s")
     beam_regs = beam_launch_shapes(build.log, parent_log)
+    beam_sass = beam_sass_steps(build.path, parent.build.build().path if parent else None)
 
     # ---- phase 2: kernel vs plain, bit for bit, on the card ----
     # every version of the beam kernel (1, 2 in both designs, 3) against the
@@ -1778,6 +1855,13 @@ def main(argv=None):
         f"{err_wide_d} against the plain version")
     if err_wide:
         raise AssertionError(f"beam kernel <16, 7> != plain at B={B_MAIN}: {err_wide_d}")
+    wide_v1 = lambda: beam_cuda.beam_ids_kernel(wide, lengths_d, THR, beam_size=WIDE_BEAM,
+                                                version=1)
+    err_wide_v1 = max(max_abs_diff(x, y) for x, y in zip(wide_v1(), wide_plain))
+    log(f"wide instance of version 1, beam {WIDE_BEAM} A+1={WIDE_A1} B={B_MAIN} T={T_MAIN}: "
+        f"max_abs_err {err_wide_v1} against the plain version")
+    if err_wide_v1:
+        raise AssertionError(f"beam kernel v1 <16, 7> != plain at B={B_MAIN}: {err_wide_v1}")
     del wide_plain
     # row 2 on the main path's own log, both routes, then the edge cases
     d_tb = traceback_parity(torch, fin, ids_log, len(ALPHABET) - 1, f"main log B={B_MAIN}")
@@ -1814,6 +1898,8 @@ def main(argv=None):
             torch),
         **{f"beam kernel <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1}), {d} design": median_event_ms(
             fn, torch) for d, fn in wide_fn.items()},
+        f"beam kernel v1 <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1})": median_event_ms(
+            wide_v1, torch),
     }
     for name, t in ms.items():
         log(f"time {name} B={B_MAIN} T={T_MAIN}: {t!r} ms "
@@ -2143,7 +2229,8 @@ def main(argv=None):
                      for d in beam_cuda.DESIGNS},
             wide_parent_ms=old_ms("row 1 beam v2 <16, 7>"),
             registers=regs("beam_ids_kernel<5, 4> v2", "beam_ids_kernel<16, 7> v2",
-                           "beam_warp_kernel<5, 4>")),
+                           "beam_warp_kernel<5, 4>"),
+            sass_step=beam_sass.get("beam_ids_kernel<5, 4> v2")),
         row("traceback_kernel", "traceback_kernel.cu", bp + "967", launches[tb_counter],
             max(*err_tb.values(), err_tb_edge), ms["traceback kernel"], ms["plain traceback"],
             b_tb, design=main_route, warps=beam_cuda.TRACEBACK_WARPS,
@@ -2160,11 +2247,17 @@ def main(argv=None):
                            "duplex_slot": tb_dup["launches"]},
             sweep_floor_ms=b_sweep[0], probe_ms=tb_probe, block_ms=tb_block),
         row("beam_ids_kernel_v1", "beam_v1_kernel.cu", bp + "93", ab_launches["beam_v1"],
-            err_beam[1], ab_ms[(1, "raw")], ms["plain beam"], b_beam, version=1,
-            parent_ms=old_ms("row 3 beam v1"), registers=regs("beam_ids_kernel<5, 4> v1")),
+            max(err_beam[1], err_wide_v1), ab_ms[(1, "raw")], ms["plain beam"], b_beam,
+            version=1, parent_ms=old_ms("row 3 beam v1"),
+            wide_ms=ms[f"beam kernel v1 <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1})"],
+            wide_parent_ms=old_ms("row 3 beam v1 <16, 7>"),
+            registers=regs("beam_ids_kernel<5, 4> v1", "beam_ids_kernel<16, 7> v1"),
+            sass_step=beam_sass.get("beam_ids_kernel<5, 4> v1"),
+            wide_sass_step=beam_sass.get("beam_ids_kernel<16, 7> v1")),
         row("beam_ids_kernel_v3", "beam_v3_kernel.cu", bp + "679", ab_launches["beam_v3"],
             err_beam[3], ab_ms[(3, "raw")], ms["plain beam"], b_beam, version=3,
-            parent_ms=old_ms("row 4 beam v3"), registers=regs("beam_ids_kernel<5, 4> v3")),
+            parent_ms=old_ms("row 4 beam v3"), registers=regs("beam_ids_kernel<5, 4> v3"),
+            sass_step=beam_sass.get("beam_ids_kernel<5, 4> v3")),
         row("crf_beam_ids_kernel", "beam_warp_kernel.cu", bp + "1270", path_launches["crf_beam"],
             err_crf, new_ms["crf beam kernel"], new_ms["plain crf beam"], b_crf,
             reads_per_block=beam_cuda.READS_PER_BLOCK,
@@ -2184,7 +2277,9 @@ def main(argv=None):
         *duplex_rows,
         row("beam_ablate_kernel", "beam_ablate_kernel.cu", "tools/kernel_ablate.py:36",
             abl["launches"], abl["max_abs_err"], abl["ms"], abl["plain_ms"], abl["bound"],
-            sets_ms=abl["sets_ms"], parent_ms=old_ms("row 10 ablation")),
+            sets_ms=abl["sets_ms"], parent_ms=old_ms("row 10 ablation"),
+            registers={n: r for n, r in beam_regs.items() if " ablate " in n},
+            sass_step={n: c[0] for n, c in beam_sass.items() if " ablate " in n}),
         dict(row("viterbi_run_means_kernel", "viterbi_runs_kernel.cu",
                  "none: no Pallas counterpart (XLA segment_sum, "
                  "fast_ctc_decode_tpu/ops/viterbi.py:96)", path_launches["viterbi_runs"], v_err,

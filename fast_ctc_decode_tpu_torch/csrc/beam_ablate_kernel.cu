@@ -3,11 +3,15 @@
 // step time to the phases.  Nothing in the library launches it.
 //
 // Replaces: tools/kernel_ablate.py::_kernel (behind run_ablate).  The body is
-// beam_core.cuh's version 1 with a compile-time phase mask (the kAbl* bits
-// there): idlog (no id-log store), mix (child hash = own hash), match (no
-// matching or arrivals, push = pushed), err (no status flags), rounds (one
-// selection round; slots 1..K-1 keep their old state), hpick (new hashes
-// sel_id*7, sel_id*13).  Its outputs are fin and err; the plain version is
+// beam_core.cuh's version 1 at <5, 4>, one-pass selection and early frame
+// load included, with a compile-time phase mask (the kAbl* bits there):
+// idlog (no id-log store), mix (child hash = own hash, in the matches and
+// in the rebuilt hashes), match (no matching or arrivals, push = pushed),
+// err (no status flags), rounds (a one-slot selection list; slots 1..K-1
+// keep their old state), hpick (new hashes sel_id*7, sel_id*13 for every
+// slot, empty ones included).  So the deltas attribute the body that rows
+// 1 and 3 run, not the first design's K rounds.  Its outputs are fin and
+// err; the plain version is
 // fast_ctc_decode_tpu_torch/tools/kernel_ablate.py::ablate_plain.
 //
 // Instances: exactly the nine sets of the tool (none, idlog, mix, match,

@@ -13,10 +13,12 @@
 // Three versions of the prefix identity, one template parameter V, as the
 // TPU kernels of beam_pallas.py (_KERNEL_VARIANTS); all give the same
 // outputs:
-//  - V = 1 (_beam_kernel): each tip carries its OWN
-//    hash pair.  Every step mixes all K*A child hashes, compares each with
-//    every tip's own hash, and the selection rounds pick the winners'
-//    hashes (a fresh winner's is mixed again).
+//  - V = 1 (_beam_kernel): each tip carries its OWN hash pair.  Extension
+//    (k, a) matches tip j iff j is valid, a == last(j) and mix(own(k), a)
+//    == own(j); so each tip j tests only the K extensions (k, last(j)):
+//    K*K pair compares with the label taken at run time, not K*K*A.  The
+//    winners' own hashes are rebuilt after the selection from each winner's
+//    source: a tip keeps its own, a fresh (k, a) takes mix(own(k), a).
 //  - V = 2 (_beam_kernel2, the default): each tip carries its PARENT hash
 //    pair.  Own hashes are mixed once per tip per step (the root's is the
 //    seed), extension (k, a) matches tip j iff own(k) == parent(j), a ==
@@ -26,33 +28,42 @@
 //    fresh winner (k, a) takes own(k), a tip winner keeps its parent.  No
 //    hash travels through the selection.  The TPU kernel's vector tricks
 //    (label XOR fold, validity poisoning) are left out: the fields are
-//    compared directly.  V2's narrow instance alone selects in one pass
-//    (below).
+//    compared directly.
 //  - V = 3 (_beam_kernel3): V2 with the candidates enumerated a-major: the
 //    expansion, the merge and the key array run a outer, k inner, so p[a]
 //    and its threshold test are loaded once per label.  Candidate ids stay
 //    t*K*A + k*A + a, so the selection and its ties are unchanged.
+// Both matches come out as two bit masks, eqk[k] over the tips (V1: the
+// child (k, last(j)) has j's own hash; V2, V3: own(k) == parent(j)) and
+// labm[a] (tip j valid with last label a): extension (k, a) targets tip j
+// iff both have bit j.  Versions 1 and 2 load frame t+1's row during step
+// t, off the step's chain.
 // ABL (version 1 only, kernel_ablate): a compile-time mask of step phases
-// replaced by stubs, deliberately wrong, to attribute time to the phases.
+// replaced by stubs, deliberately wrong, to attribute time to the phases:
+// it runs the body of version 1 above, one-pass selection included.
 //
-// Selection.  V1, V3 and the ablation kernel keep the first design, as the
-// yardstick of the A/B and ablation tools: K rounds of (max key, tie -> min
-// id), each scanning all K + K*A keys and then picking the winner's fields
-// in a second pass.  So does V2's wide instance <16, 7>: its candidate loop
-// is not unrolled, so a one-pass list of 16 slots lives in local memory
-// (ptxas: 32 registers and ~16 KB spilled, against 255 and ~3.5 KB), and it
-// ran 1.8x slower than the rounds at B = 32768, beam 16, A+1 = 8 on an H100
-// (chip_smoke.py --parent).  V2's narrow instance selects in one pass:
-// each candidate goes into a sorted list of the KMAX best as one 64-bit
-// word (the key's order-preserving bits, then 255 minus a tie rank, then
-// the candidate slot c in the low byte; the tie rank orders the tips by id
-// and puts the fresh candidates after them in id order, which is their
-// slot order).
-// Every slot compares with the word at once and a shift by selects follows,
-// so a candidate costs a few dependent operations, not K scans.  Valid ids
-// are distinct and -inf keys are never inserted, so slot r ends with
-// exactly what round r picks; the winners' fields are then taken from
-// their slots c.
+// Selection.  The narrow instances <5, 4> of versions 1 and 2 (and so the
+// ablation sets) select in one pass: each candidate goes into a sorted list
+// of the KMAX best as one 64-bit word (the key's order-preserving bits, then
+// 255 minus a tie rank, then the candidate slot c in the low byte; the tie
+// rank orders the tips by id and puts the fresh candidates after them in id
+// order, which is their slot order in k-major versions).  Every slot
+// compares with the word at once and a shift by selects follows, so a
+// candidate costs a few dependent operations, not K scans.  Valid ids are
+// distinct and -inf keys are never inserted, so slot r ends with exactly
+// what round r picks; the winners' fields are then taken from their slots
+// c.  The ablation 'rounds' keeps a list of one slot (slots 1..K-1 keep
+// their old state, which stays empty, so only slot 0 is ever valid and the
+// ids of valid tips stay distinct under every stub).  Version 3 and the
+// wide instances <16, 7> keep the first design, K rounds of (max key, tie
+// -> min id), each scanning all K + K*A keys and then picking the winner's
+// fields in a second pass.  Both selections record each winner's source
+// slot, and the hashes and labels are rebuilt from it after the selection
+// in every version.  The wide loops are not unrolled, so a
+// one-pass list of 16 slots lives in local memory (ptxas: 32 registers and
+// ~16 KB spilled, against 255 and ~3.5 KB), and it ran 1.8x slower than
+// the rounds at B = 32768, beam 16, A+1 = 8 on an H100 (chip_smoke.py
+// --parent).
 //
 // Design: one thread per read, block 128.  The beam (K tips x lab, gap,
 // h1, h2, last label, id, valid) and the K + K*A candidate keys live
@@ -148,7 +159,8 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
   // anyway, so their per-round state lives in local memory.
   constexpr int UK = KMAX * CMAX <= 256 ? KMAX : 1;
   constexpr int UO = KMAX * CMAX <= 256 ? O : 1;
-  constexpr bool ONE_PASS = V == 2 && UK == KMAX;  // the selection (above)
+  constexpr bool ONE_PASS = V != 3 && UK == KMAX;  // the selection (above)
+  static_assert(ABL == 0 || ONE_PASS, "the phase stubs live in the one-pass body");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int A1 = A + 1;
@@ -177,11 +189,11 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
     valid[k] = k == 0;
   }
   int err = 0;
-  // version 2: frame t+1's row is loaded during step t
+  // versions 1 and 2: frame t+1's row is loaded during step t
   float pn[AMAX + 1];
 #pragma unroll
   for (int a = 0; a <= AMAX; ++a)
-    pn[a] = (V == 2 && a <= A && 0 < len && 0 < T) ? row[a] : 0.f;
+    pn[a] = (V != 3 && a <= A && 0 < len && 0 < T) ? row[a] : 0.f;
 
   int t = 0;
   for (; t < T; ++t) {
@@ -196,7 +208,7 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
     float p[AMAX + 1];
 #pragma unroll
     for (int a = 0; a <= AMAX; ++a) {
-      if constexpr (V == 2) {
+      if constexpr (V != 3) {
         p[a] = pn[a];
         pn[a] = (a <= A && t + 1 < len && t + 1 < T) ? row[(size_t)(t + 1) * A1 + a] : 0.f;
       } else {
@@ -208,10 +220,12 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) lg[k] = __fadd_rn(lab[k], gap[k]);
 
-    // ---- own hashes (V2, V3: once per tip) and the parent matches ----
+    // ---- own hashes (V2, V3: once per tip) and the matches (above) ----
+    // V1's branch repeats labm rather than share V2's block: folding them
+    // together moved V2's and V3's SASS (chip_smoke.py --parent).
     uint32_t oh1[KMAX], oh2[KMAX];
-    uint32_t eqk[KMAX];  // V2, V3: bit j iff own(k) == parent(j)
-    uint32_t labm[AMAX];  // V2, V3: bit j iff tip j is valid with last label a
+    uint32_t eqk[KMAX];  // V1: child (k, last(j)) has own(j); V2, V3: own(k) == parent(j)
+    uint32_t labm[AMAX];  // bit j iff tip j is valid with last label a
     if (V != 1) {
 #pragma unroll
       for (int k = 0; k < KMAX; ++k) {
@@ -224,6 +238,28 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
 #pragma unroll
         for (int j = 0; j < KMAX; ++j)
           if (j < K && oh1[k] == h1[j] && oh2[k] == h2[j]) m |= 1u << j;
+        eqk[k] = m;
+      }
+#pragma unroll
+      for (int a = 0; a < AMAX; ++a) {
+        uint32_t m = 0u;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j < K && valid[j] && ll[j] == a) m |= 1u << j;
+        labm[a] = m;
+      }
+    } else if (!(ABL & kAblMatch)) {
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        uint32_t m = 0u;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          const uint32_t c1 =
+              (ABL & kAblMix) ? h1[k] : mix(h1[k], (uint32_t)ll[j], kMult1, kAdd1);
+          const uint32_t c2 =
+              (ABL & kAblMix) ? h2[k] : mix(h2[k], (uint32_t)ll[j], kMult2, kAdd2);
+          if (j < K && c1 == h1[j] && c2 == h2[j]) m |= 1u << j;
+        }
         eqk[k] = m;
       }
 #pragma unroll
@@ -249,18 +285,7 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
         bool pu = false;
         float me = 0.f;
         if (k < K && a < A) {
-          if (V != 1) {
-            m = eqk[k] & labm[a];
-          } else if (!(ABL & kAblMatch)) {
-            const uint32_t th1 =
-                (ABL & kAblMix) ? h1[k] : mix(h1[k], (uint32_t)a, kMult1, kAdd1);
-            const uint32_t th2 =
-                (ABL & kAblMix) ? h2[k] : mix(h2[k], (uint32_t)a, kMult2, kAdd2);
-#pragma unroll
-            for (int j = 0; j < KMAX; ++j)
-              if (j < K && valid[j] && ll[j] == a && h1[j] == th1 && h2[j] == th2)
-                m |= 1u << j;
-          }
+          if (!(ABL & kAblMatch)) m = eqk[k] & labm[a];
           const float pa = p[1 + a];
           const bool is_rep = collapse && ll[k] == a;
           const bool pushed = valid[k] && !(pa < thr);
@@ -328,10 +353,10 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
     }
 
     // ---- top-K by (max key, tie -> min id) ----
-    // Version 2's narrow instance selects in one pass; the rest in K
-    // rounds.  Version 1 picks each winner's fields in its round; versions
-    // 2 and 3 record its source slot (nsrc) and rebuild hashes and labels
-    // after.
+    // The narrow instances of versions 1 and 2 select in one pass; the rest
+    // in K rounds.  Both record each winner's source slot (nsrc); the
+    // hashes and labels are rebuilt after.  The ablation 'rounds' selects
+    // slot 0 alone (R = 1).
     constexpr int R = (ABL & kAblRounds) ? 1 : KMAX;
     float top = 0.f;
     float nlab[KMAX], ngap[KMAX];
@@ -348,10 +373,10 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
         for (int i = 0; i < KMAX; ++i) n += (i < K && id[i] < id[j]) ? 1 : 0;
         tie[j] = n;
       }
-      // the sorted list of the KMAX best words, larger first; 0 = empty
-      unsigned long long best[KMAX];
+      // the sorted list of the R best words, larger first; 0 = empty
+      unsigned long long best[R];
 #pragma unroll
-      for (int r = 0; r < KMAX; ++r) best[r] = 0ull;
+      for (int r = 0; r < R; ++r) best[r] = 0ull;
 #pragma unroll
       for (int c = 0; c < CMAX; ++c) {
         const uint32_t kb = __float_as_uint(key[c]);
@@ -360,18 +385,18 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
         const uint32_t lo = ((255u - rank) << 8) | (uint32_t)c;
         const unsigned long long x =
             key[c] > neg_inf() ? ((unsigned long long)ord << 32) | lo : 0ull;
-        bool gt[KMAX];
+        bool gt[R];
 #pragma unroll
-        for (int r = 0; r < KMAX; ++r) gt[r] = x > best[r];
+        for (int r = 0; r < R; ++r) gt[r] = x > best[r];
 #pragma unroll
-        for (int r = KMAX - 1; r >= 0; --r)
+        for (int r = R - 1; r >= 0; --r)
           best[r] = (r > 0 && gt[r > 0 ? r - 1 : 0]) ? best[r > 0 ? r - 1 : 0]
                                                      : (gt[r] ? x : best[r]);
       }
       // slot r: the winner's fields from its candidate slot c, selected
       // over the register arrays
 #pragma unroll
-      for (int r = 0; r < KMAX; ++r) {
+      for (int r = 0; r < R; ++r) {
         const bool v = r < K && best[r] != 0ull;
         const int c = v ? (int)(best[r] & 0xffu) : 0;
         float sel_lab = 0.f, sel_gap = 0.f;
@@ -424,10 +449,6 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
           best_id = cid;
         }
       }
-      if (ABL & kAblHpick) {
-        nh1[r] = (uint32_t)(mx > neg_inf() ? best_id : kEmpty) * 7u;
-        nh2[r] = (uint32_t)(mx > neg_inf() ? best_id : kEmpty) * 13u;
-      }
       if (!(mx > neg_inf())) continue;  // no candidate left: slot stays empty
       float sel_lab = 0.f, sel_gap = 0.f;
 #pragma unroll
@@ -437,24 +458,10 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
         if (c < KMAX) {
           sel_lab = tip_lab[c];
           sel_gap = tip_gap[c];
-          if (V == 1) {
-            if (!(ABL & kAblHpick)) {
-              nh1[r] = h1[c];
-              nh2[r] = h2[c];
-            }
-            nll[r] = ll[c];
-          }
         } else {
           const int k = FK(c), a = FA(c);
           sel_lab = mext[k][a];
           sel_gap = 0.f;
-          if (V == 1) {
-            if (!(ABL & kAblHpick)) {
-              nh1[r] = (ABL & kAblMix) ? h1[k] : mix(h1[k], (uint32_t)a, kMult1, kAdd1);
-              nh2[r] = (ABL & kAblMix) ? h2[k] : mix(h2[k], (uint32_t)a, kMult2, kAdd2);
-            }
-            nll[r] = a;
-          }
         }
       }
       // the masked sums of the plain engine add +0.0: canonical -0.0
@@ -482,6 +489,32 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
           nh1[r] = fresh ? oh1[j] : h1[j];
           nh2[r] = fresh ? oh2[j] : h2[j];
           nll[r] = fresh ? FA(c) : ll[j];
+        }
+      }
+    } else {
+      // new own hashes from each winner's source: a tip keeps its own, a
+      // fresh (k, a) takes mix(own(k), a), one mix per slot; labels likewise
+#pragma unroll(UK)
+      for (int r = 0; r < R; ++r) {
+        const int c = nsrc[r];
+        const bool fresh = c >= KMAX;
+        const int src = fresh ? FK(c) : c;
+        uint32_t s1 = 0u, s2 = 0u;
+        int sl = -1;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          if (j != src) continue;
+          s1 = h1[j];
+          s2 = h2[j];
+          sl = ll[j];
+        }
+        const bool remix = fresh && !(ABL & kAblMix);
+        nh1[r] = remix ? mix(s1, (uint32_t)FA(c), kMult1, kAdd1) : s1;
+        nh2[r] = remix ? mix(s2, (uint32_t)FA(c), kMult2, kAdd2) : s2;
+        nll[r] = fresh ? FA(c) : sl;
+        if (ABL & kAblHpick) {
+          nh1[r] = (uint32_t)nid[r] * 7u;
+          nh2[r] = (uint32_t)nid[r] * 13u;
         }
       }
     }

@@ -3,13 +3,17 @@
 //
 // Replaces: fast_ctc_decode_tpu/ops/beam_pallas.py::_beam_kernel (behind
 // beam_search_pallas_batch(version=1), used by tools/ab_bench.py).  Same
-// outputs as version 2, bit for bit.  Each tip carries its own hash pair,
-// so every step mixes K*A child hashes and compares each with the K tips,
-// and the rounds carry the winners' hashes; beam_core.cuh describes the
-// versions, the design and the bounds.  It is its own translation unit so
-// that nvcc builds it beside the others.
+// outputs as version 2, bit for bit.  Each tip carries its own hash pair:
+// each tip j tests only the K extensions (k, last(j)), mixing own(k) with
+// j's label (K*K pairs a step), and the winners' own hashes are rebuilt
+// from their sources after the selection (one mix a fresh winner).  It
+// runs row 1's design for the card: one thread per read, frame t+1 loaded
+// during step t, and at <5, 4> the one-pass selection; beam_core.cuh
+// describes the versions, the design and the bounds.  It is its own
+// translation unit so that nvcc builds it beside the others.
 //
-// Two instances: <5, 4> and <16, 7>, as beam_kernel.cu.
+// Two instances: <5, 4> (one-pass selection) and <16, 7> (K selection
+// rounds: its one-pass list would spill, as version 2's did).
 
 #include "beam_core.cuh"
 

@@ -7,11 +7,15 @@ mismatch; then it times each version's beam kernel alone (``raw=True``: the
 forward beam, CUDA events) and the full pipeline (beam kernel + traceback
 kernel), median of ``iters`` runs, with reads/s.
 
-Version 2 is the redesigned kernel: at this tool's B=32768 it runs one
-thread per read with a one-pass selection (``beam_cuda.design_for``; below
-``beam_cuda.THREAD_MIN_B`` reads it runs one warp per read), while versions 1
-and 3 keep the first design, K selection rounds, as the yardstick.  All three
-must still agree bit for bit.
+Versions 1 and 2 run the same design, one thread per read with the frame
+loaded a step ahead and, at beam <= 5 and A+1 <= 5, a one-pass selection;
+they differ in the TPU's identity schemes (version 1: own hashes, each tip
+tested against the K extensions of its last label; version 2: parent
+hashes).  Version 3 (a-major) keeps the first design, K selection rounds.
+Below ``beam_cuda.THREAD_MIN_B`` reads version 2 runs one warp per read
+(``beam_cuda.design_for``) while versions 1 and 3 stay one thread per read:
+there the tool compares designs, not only identity schemes.  All three must
+agree bit for bit.
 
 The JAX tool also sweeps the Pallas ``(block_b, block_t)`` tiling; that is
 the TPU's VMEM blocking and has no counterpart here (the T loop runs inside

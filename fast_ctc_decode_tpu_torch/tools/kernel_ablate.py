@@ -14,8 +14,15 @@ to attribute step time to the phases:
 
 ``run_ablate`` launches the CUDA kernel (``csrc/beam_ablate_kernel.cu``,
 the version-1 body of ``csrc/beam_core.cuh`` with a compile-time phase mask)
-on a CUDA tensor and runs ``ablate_plain``, the same stubbed step in plain
-torch built from ``ops/beam_fast.py``'s pieces, on a CPU tensor.  The kernel
+on a CUDA tensor.  That body runs the design of the main path's kernel: one
+thread per read, the frame loaded a step ahead, the one-pass selection (a
+sorted insert; ``rounds`` keeps a one-slot list) and matching per tip; so the
+deltas attribute the one-pass step, not the first design's K rounds that
+the JAX tool's kernel runs.  It computes the same stubbed function as the
+JAX tool, whatever the design.  The tool stays one of version 1, as the
+JAX tool is built over ``_beam_kernel``.  On a CPU tensor ``run_ablate``
+runs ``ablate_plain``, the same stubbed step in plain torch built from
+``ops/beam_fast.py``'s pieces.  The kernel
 exists for the nine sets that ``main`` times (``SETS``), at beam <= 5 and
 A+1 <= 5 (the tool's beam 5 over "NACGT"); anything else raises ValueError.
 Nothing in the library uses these variants.
@@ -206,6 +213,12 @@ def run_ablate(probs, lengths, thr, *, beam_size, ablate=""):
         )
     if probs.device.type == "cpu":
         return ablate_plain(probs, lengths, thr, beam_size=K, ablate=ablate)
+    return _launch(probs, lengths, thr, K=K, mask=mask, what=ablate or "none")
+
+
+def _launch(probs, lengths, thr, *, K, mask, what):
+    """Launch the ablation kernel of phase mask ``mask`` on ``probs``'s device."""
+    B, T, A1 = probs.shape
     dev = probs.device
     ids_log = torch.empty((T, K, B), dtype=torch.int32, device=dev)
     fin = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -219,7 +232,7 @@ def run_ablate(probs, lengths, thr, *, beam_size, ablate=""):
             ids_log.data_ptr(), fin.data_ptr(), err.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    beam_cuda._raise_for(rc, f"ablation kernel ({ablate or 'none'})")
+    beam_cuda._raise_for(rc, f"ablation kernel ({what})")
     launches["ablate"] += 1
     return {"fin": fin, "err": err}
 

@@ -128,31 +128,38 @@ template <class Fn> void host_launch(dim3 grid, dim3 block, Fn fn) {
 """
 
 
-@pytest.fixture(scope="module")
-def shim_library(tmp_path_factory):
-    """The hash beam sources built by g++ against the stand-in runtime."""
+def build_shim_library(out, sources, name):
+    """``sources`` (in ``csrc/``, with ``beam_core.cuh``) built by g++ into
+    ``out/name`` against the stand-in runtime, loaded with the argtypes of
+    ``_build.SIGNATURES``; skips the test where g++ is missing."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the host shim cannot be built")
-    out = tmp_path_factory.mktemp("beam_shim")
     (out / "cuda_runtime.h").write_text(SHIM_HEADER)
-    for name in ("beam_core.cuh",) + SOURCES:
-        with open(os.path.join(CSRC, name)) as f:
+    for src in ("beam_core.cuh",) + tuple(sources):
+        with open(os.path.join(CSRC, src)) as f:
             text = f.read()
-        (out / name).write_text(LAUNCH.sub(
+        (out / src).write_text(LAUNCH.sub(
             lambda m: f"host_launch(dim3({m.group(2)}), dim3({m.group(3)}), "
                       f"[&] {{ {m.group(1)}({m.group(4)}); }});", text))
-    lib_path = out / "libbeam_shim.so"
+    lib_path = out / name
     subprocess.run(
         [gxx, "-x", "c++", "-O1", "-std=c++20", "-ffp-contract=off", "-pthread", "-shared",
-         "-fPIC", "-I", str(out), "-o", str(lib_path), *(str(out / n) for n in SOURCES)],
+         "-fPIC", "-I", str(out), "-o", str(lib_path), *(str(out / n) for n in sources)],
         check=True, capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(lib_path))
-    for name, args in _build.SIGNATURES.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
+    for fn_name, args in _build.SIGNATURES.items():
+        if hasattr(lib, fn_name):
+            fn = getattr(lib, fn_name)
             fn.restype = ctypes.c_int
             fn.argtypes = args
+    return lib
+
+
+@pytest.fixture(scope="module")
+def shim_library(tmp_path_factory):
+    """The hash beam sources built by g++ against the stand-in runtime."""
+    lib = build_shim_library(tmp_path_factory.mktemp("beam_shim"), SOURCES, "libbeam_shim.so")
     lib.ctc_cuda_error_string.restype = ctypes.c_char_p
     lib.ctc_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
