@@ -5,10 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-or, to time the hash beam kernels (rows 1, 3, 4, 5 and 10, and row 1's
-wide instance) and the traceback (row 2, at B=32768 and on the first 256
-reads of its log) beside a parent commit's kernels in the same run, with the
-parent's package unpacked in DIR (``git archive <commit>
+or, to time the hash beam kernels (rows 1, 3, 4, 5 and 10, and the wide
+instances of rows 1, 3 and 4) and the traceback (row 2, at B=32768 and on
+the first 256 reads of its log) beside a parent commit's kernels in the
+same run, with the parent's package unpacked in DIR (``git archive <commit>
 fast_ctc_decode_tpu_torch | tar -x -C DIR``), imported under another name and
 driven through its own wrappers (``ops/beam_cuda.py``,
 ``tools/kernel_ablate.py``), which build its kernels there:
@@ -51,17 +51,18 @@ Phases, each of which raises on failure (exit code non-zero):
      grow) and checks the result against an uninterrupted run;
   5. holds the beam kernel to the plain version on the main path's inputs
      (B=32768, T=1000) in both designs, and its wide instance (one thread
-     per read, beam 16, A+1 = 8; and one warp per read) and version 1's wide
-     instance on inputs of that width, bit for bit; times both kernels (the
-     beam kernel in both designs, its wide instance in both, version 1's),
+     per read, beam 16, A+1 = 8; and one warp per read) and the wide
+     instances of versions 1 and 3 on inputs of that width, bit for bit;
+     times both kernels (the beam kernel in both designs, its wide instance
+     in both, those of versions 1 and 3),
      ``decode_arrays``, ``decode`` and the plain engine there
      (CUDA-synchronised medians of 5 runs); holds both traceback routes to
      the plain version on the main path's log, on its first 1 and 33 reads,
      on logs of every kind of node id (``random_log``: the duplex slot
      log's widths K=32/A=1 and K=4/A=8, and 1-8 warps a block) and at the
      sweep's just-fits and the walk's just-misses, and times both routes at
-     B=32768 and on the first 256 reads; with ``--parent``, rows 1 and 3
-     (both instances), 4, 10 and 2 (both B) beside the parent's kernels in
+     B=32768 and on the first 256 reads; with ``--parent``, rows 1, 3 and 4
+     (both instances), 10 and 2 (both B) beside the parent's kernels in
      turns (parent, new, new, parent) after checking equal outputs; then
      ``tools.kernel_probe`` (the main path's stages, both designs at B = 1
      ... 32768, the warp design at 1-8 reads a block, both traceback routes
@@ -120,8 +121,8 @@ Phases, each of which raises on failure (exit code non-zero):
      (CUDA events around each launch inside ``decode``, summed), and holds
      the full-width kernel outputs to the plain ones;
   13. the A/B path (``tools.ab_bench``) at B=32768, T=1000: versions 1
-     (own-hash, one-pass selection), 2 (parent-hash, one-pass selection) and
-     3 (a-major, K selection rounds) equal on all four fields, each
+     (own-hash), 2 (parent-hash) and 3 (parent-hash, candidates a-major),
+     all three selecting in one pass, equal on all four fields, each
      launched; each version's kernel and full pipeline timed, and
      ``BatchBeamDecoder.decode`` (version 2);
   14. the ablation path (``tools.kernel_ablate``, version 1's one-pass body
@@ -160,7 +161,7 @@ import numpy as np
 
 ALPHABET = "NACGT"
 B_MAIN, T_MAIN, BEAM, THR = 32768, 1000, 5, 0.1
-WIDE_BEAM, WIDE_A1 = 16, 8  # the wide instance <16, 7> (versions 1 and 2) at B_MAIN, T_MAIN
+WIDE_BEAM, WIDE_A1 = 16, 8  # the wide instance <16, 7> (versions 1-3) at B_MAIN, T_MAIN
 B_SMALL_TB = 256  # row 2 also timed on the first B_SMALL_TB reads of the main log
 B_EXACT = 1024  # exact 1D at T_MAIN
 T_CRF, S_CRF, B_CRF, B_CRF_EXACT = 400, 64, 1024, 256
@@ -183,6 +184,19 @@ def make_reads(B, T, A1, seed):
     probs = rng.rand(B, T, A1).astype(np.float32)
     probs /= np.linalg.norm(probs, ord=2, axis=-1, keepdims=True)
     return probs
+
+
+def tie_reads(B, T, seed, A1=5):
+    """Posteriors of exact powers of two, not normalised: each frame draws
+    its blank and one label probability shared by every label (a third of the
+    frames draw one per label), so tips carry equal masses and fresh
+    extensions of different tips tie inside the beam."""
+    rng = np.random.RandomState(seed)
+    shared = np.repeat(rng.randint(1, 4, size=(B, T, 1)), A1 - 1, axis=2)
+    own = rng.randint(1, 4, size=(B, T, A1 - 1))
+    labels = np.where(rng.rand(B, T, 1) < 1 / 3, own, shared)
+    blank = rng.randint(1, 6, size=(B, T, 1))
+    return np.exp2(-np.concatenate([blank, labels], axis=2)).astype(np.float32)
 
 
 def make_crf_reads(B, T, S, A1, seed):
@@ -482,7 +496,7 @@ def turns_ms(torch, parent_fn, new_fn, same, calls=1):
 
 
 def parent_turns(torch, smi, parent, probs, lengths, wide, tb_logs):
-    """Rows 1, 3, 4 and 10, the wide instances of versions 2 and 1, and row 2 (on each of
+    """Rows 1, 3, 4 and 10, the wide instances of versions 2, 1 and 3, and row 2 (on each of
     ``tb_logs``, (fin, ids_log) pairs) beside the parent's kernels on the
     same inputs, through each tree's own wrappers (``parent`` from
     ``parent_package``): {row: (parent ms, this tree's ms)}."""
@@ -504,6 +518,8 @@ def parent_turns(torch, smi, parent, probs, lengths, wide, tb_logs):
          lambda m: m.beam_ids_kernel(wide, lengths, THR, beam_size=WIDE_BEAM, version=1)),
         ("row 4 beam v3", shape, lambda m: m.beam_ids_kernel(
             probs, lengths, THR, beam_size=BEAM, version=3)),
+        ("row 4 beam v3 <16, 7>", f"beam {WIDE_BEAM} A+1={WIDE_A1} {shape}",
+         lambda m: m.beam_ids_kernel(wide, lengths, THR, beam_size=WIDE_BEAM, version=3)),
         ("row 10 ablation", f"kernel (no phase stubbed) B={B // 2} T={T}",
          lambda m: tuple(m.run_ablate(pa, la, THR, beam_size=BEAM).values())),
     ]
@@ -640,6 +656,10 @@ def parity_cases(full_width=True):
     cases.append(("beam1", make_reads(3, 30, 5, 15), [30, 12, 30], 0.05, 1, True))
     cases.append(("A1=8", make_reads(3, 30, 8, 12), [30, 17, 30], 0.05, 5, True))
     cases.append(("A1=8_beam16", make_reads(3, 30, 8, 13), [30, 17, 30], 0.0, 16, True))
+    # fresh extensions of different tips tie inside the top K: their order is
+    # the id order (k, a), which is not version 3's a-major slot order
+    cases.append(("ties", tie_reads(4, 24, 16), [24, 24, 15, 24], 0.0, 5, True))
+    cases.append(("ties_cut0.1", tie_reads(4, 24, 17), [24, 9, 24, 24], 0.1, 5, True))
     if not full_width:
         return cases
     rng = np.random.RandomState(11)
@@ -1855,13 +1875,16 @@ def main(argv=None):
         f"{err_wide_d} against the plain version")
     if err_wide:
         raise AssertionError(f"beam kernel <16, 7> != plain at B={B_MAIN}: {err_wide_d}")
-    wide_v1 = lambda: beam_cuda.beam_ids_kernel(wide, lengths_d, THR, beam_size=WIDE_BEAM,
-                                                version=1)
-    err_wide_v1 = max(max_abs_diff(x, y) for x, y in zip(wide_v1(), wide_plain))
-    log(f"wide instance of version 1, beam {WIDE_BEAM} A+1={WIDE_A1} B={B_MAIN} T={T_MAIN}: "
-        f"max_abs_err {err_wide_v1} against the plain version")
-    if err_wide_v1:
-        raise AssertionError(f"beam kernel v1 <16, 7> != plain at B={B_MAIN}: {err_wide_v1}")
+    wide_v = {v: (lambda v=v: beam_cuda.beam_ids_kernel(wide, lengths_d, THR,
+                                                        beam_size=WIDE_BEAM, version=v))
+              for v in (1, 3)}
+    err_wide_v = {v: max(max_abs_diff(x, y) for x, y in zip(fn(), wide_plain))
+                  for v, fn in wide_v.items()}
+    for v, e in err_wide_v.items():
+        log(f"wide instance of version {v}, beam {WIDE_BEAM} A+1={WIDE_A1} B={B_MAIN} "
+            f"T={T_MAIN}: max_abs_err {e} against the plain version")
+        if e:
+            raise AssertionError(f"beam kernel v{v} <16, 7> != plain at B={B_MAIN}: {e}")
     del wide_plain
     # row 2 on the main path's own log, both routes, then the edge cases
     d_tb = traceback_parity(torch, fin, ids_log, len(ALPHABET) - 1, f"main log B={B_MAIN}")
@@ -1898,8 +1921,8 @@ def main(argv=None):
             torch),
         **{f"beam kernel <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1}), {d} design": median_event_ms(
             fn, torch) for d, fn in wide_fn.items()},
-        f"beam kernel v1 <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1})": median_event_ms(
-            wide_v1, torch),
+        **{f"beam kernel v{v} <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1})": median_event_ms(
+            fn, torch) for v, fn in wide_v.items()},
     }
     for name, t in ms.items():
         log(f"time {name} B={B_MAIN} T={T_MAIN}: {t!r} ms "
@@ -2247,7 +2270,7 @@ def main(argv=None):
                            "duplex_slot": tb_dup["launches"]},
             sweep_floor_ms=b_sweep[0], probe_ms=tb_probe, block_ms=tb_block),
         row("beam_ids_kernel_v1", "beam_v1_kernel.cu", bp + "93", ab_launches["beam_v1"],
-            max(err_beam[1], err_wide_v1), ab_ms[(1, "raw")], ms["plain beam"], b_beam,
+            max(err_beam[1], err_wide_v[1]), ab_ms[(1, "raw")], ms["plain beam"], b_beam,
             version=1, parent_ms=old_ms("row 3 beam v1"),
             wide_ms=ms[f"beam kernel v1 <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1})"],
             wide_parent_ms=old_ms("row 3 beam v1 <16, 7>"),
@@ -2255,9 +2278,13 @@ def main(argv=None):
             sass_step=beam_sass.get("beam_ids_kernel<5, 4> v1"),
             wide_sass_step=beam_sass.get("beam_ids_kernel<16, 7> v1")),
         row("beam_ids_kernel_v3", "beam_v3_kernel.cu", bp + "679", ab_launches["beam_v3"],
-            err_beam[3], ab_ms[(3, "raw")], ms["plain beam"], b_beam, version=3,
-            parent_ms=old_ms("row 4 beam v3"), registers=regs("beam_ids_kernel<5, 4> v3"),
-            sass_step=beam_sass.get("beam_ids_kernel<5, 4> v3")),
+            max(err_beam[3], err_wide_v[3]), ab_ms[(3, "raw")], ms["plain beam"], b_beam,
+            version=3, parent_ms=old_ms("row 4 beam v3"),
+            wide_ms=ms[f"beam kernel v3 <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1})"],
+            wide_parent_ms=old_ms("row 4 beam v3 <16, 7>"),
+            registers=regs("beam_ids_kernel<5, 4> v3", "beam_ids_kernel<16, 7> v3"),
+            sass_step=beam_sass.get("beam_ids_kernel<5, 4> v3"),
+            wide_sass_step=beam_sass.get("beam_ids_kernel<16, 7> v3")),
         row("crf_beam_ids_kernel", "beam_warp_kernel.cu", bp + "1270", path_launches["crf_beam"],
             err_crf, new_ms["crf beam kernel"], new_ms["plain crf beam"], b_crf,
             reads_per_block=beam_cuda.READS_PER_BLOCK,

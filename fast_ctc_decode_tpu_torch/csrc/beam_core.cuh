@@ -32,32 +32,35 @@
 //  - V = 3 (_beam_kernel3): V2 with the candidates enumerated a-major: the
 //    expansion, the merge and the key array run a outer, k inner, so p[a]
 //    and its threshold test are loaded once per label.  Candidate ids stay
-//    t*K*A + k*A + a, so the selection and its ties are unchanged.
+//    t*K*A + k*A + a, so slot order is not id order: (k=1, a=0) sits in
+//    slot 6 of <5, 4>, (k=0, a=1) in slot 10, and a tie between them goes
+//    to (0, 1).  The selection ranks fresh candidates by id (below).
 // Both matches come out as two bit masks, eqk[k] over the tips (V1: the
 // child (k, last(j)) has j's own hash; V2, V3: own(k) == parent(j)) and
 // labm[a] (tip j valid with last label a): extension (k, a) targets tip j
-// iff both have bit j.  Versions 1 and 2 load frame t+1's row during step
-// t, off the step's chain.
+// iff both have bit j.  Every version loads frame t+1's row during step t,
+// off the step's chain.
 // ABL (version 1 only, kernel_ablate): a compile-time mask of step phases
 // replaced by stubs, deliberately wrong, to attribute time to the phases:
 // it runs the body of version 1 above, one-pass selection included.
 //
-// Selection.  The narrow instances <5, 4> of versions 1 and 2 (and so the
+// Selection.  The narrow instances <5, 4> of every version (and so the
 // ablation sets) select in one pass: each candidate goes into a sorted list
 // of the KMAX best as one 64-bit word (the key's order-preserving bits, then
 // 255 minus a tie rank, then the candidate slot c in the low byte; the tie
 // rank orders the tips by id and puts the fresh candidates after them in id
-// order, which is their slot order in k-major versions).  Every slot
+// order: KMAX + k*AMAX + a for (k, a), a constant of the unrolled loop,
+// which in the k-major versions 1 and 2 is the slot c itself).  Every slot
 // compares with the word at once and a shift by selects follows, so a
 // candidate costs a few dependent operations, not K scans.  Valid ids are
 // distinct and -inf keys are never inserted, so slot r ends with exactly
 // what round r picks; the winners' fields are then taken from their slots
-// c.  The ablation 'rounds' keeps a list of one slot (slots 1..K-1 keep
-// their old state, which stays empty, so only slot 0 is ever valid and the
-// ids of valid tips stay distinct under every stub).  Version 3 and the
-// wide instances <16, 7> keep the first design, K rounds of (max key, tie
-// -> min id), each scanning all K + K*A keys and then picking the winner's
-// fields in a second pass.  Both selections record each winner's source
+// c, through each version's slot map.  The ablation 'rounds' keeps a list of
+// one slot (slots 1..K-1 keep their old state, which stays empty, so only
+// slot 0 is ever valid and the ids of valid tips stay distinct under every
+// stub).  The wide instances <16, 7> keep K rounds of (max key, tie -> min
+// id), each scanning all K + K*A keys and then picking the winner's fields
+// in a second pass.  Both selections record each winner's source
 // slot, and the hashes and labels are rebuilt from it after the selection
 // in every version.  The wide loops are not unrolled, so a
 // one-pass list of 16 slots lives in local memory (ptxas: 32 registers and
@@ -136,12 +139,12 @@ __device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t x, uint32_t mult,
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-// probs: [B, T, A+1] f32.  The parameter list is the first design's, whose
-// CRF instances read init [B, Si] and rows of S states (they moved to
-// beam_warp_kernel.cu): the 1D instances take S = Si = 1 and no init, and
-// keep that list so that versions 1 and 3 and the ablation sets compile to
-// the registers they had before (chip_smoke.py --parent compares them).
-// init, S and Si are dead; they go with the first design.
+// probs: [B, T, A+1] f32.  init, S and Si are dead: the first design's CRF
+// instances read init [B, Si] and rows of S states (they moved to
+// beam_warp_kernel.cu), and the 1D instances take S = Si = 1 and no init.
+// They stay because taking them out moves the compiled code of the other
+// instances: built without them for an H100, version 1's <5, 4> step loop
+// grew and the ablation sets 4 and 6 took more registers.
 template <int KMAX, int AMAX, int V, int ABL>
 __global__ void __launch_bounds__(kBlock)
 beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
@@ -159,7 +162,7 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
   // anyway, so their per-round state lives in local memory.
   constexpr int UK = KMAX * CMAX <= 256 ? KMAX : 1;
   constexpr int UO = KMAX * CMAX <= 256 ? O : 1;
-  constexpr bool ONE_PASS = V != 3 && UK == KMAX;  // the selection (above)
+  constexpr bool ONE_PASS = UK == KMAX;  // the selection (above)
   static_assert(ABL == 0 || ONE_PASS, "the phase stubs live in the one-pass body");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -170,6 +173,8 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
   // candidate slot c >= KMAX <-> fresh extension (k, a), in loop order
 #define FK(c) (V == 3 ? ((c) - KMAX) % KMAX : ((c) - KMAX) / AMAX)
 #define FA(c) (V == 3 ? ((c) - KMAX) / KMAX : ((c) - KMAX) % AMAX)
+// and back: the slot of extension (k, a)
+#define SLOT(k, a) (V == 3 ? KMAX + (a) * KMAX + (k) : KMAX + (k) * AMAX + (a))
 
   // ---- beam state: the root alone in slot 0 ----
   // h1/h2: the tip's own hash (V1) or its parent's hash (V2, V3; the
@@ -189,11 +194,10 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
     valid[k] = k == 0;
   }
   int err = 0;
-  // versions 1 and 2: frame t+1's row is loaded during step t
+  // frame t+1's row is loaded during step t
   float pn[AMAX + 1];
 #pragma unroll
-  for (int a = 0; a <= AMAX; ++a)
-    pn[a] = (V != 3 && a <= A && 0 < len && 0 < T) ? row[a] : 0.f;
+  for (int a = 0; a <= AMAX; ++a) pn[a] = (a <= A && 0 < len && 0 < T) ? row[a] : 0.f;
 
   int t = 0;
   for (; t < T; ++t) {
@@ -208,12 +212,8 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
     float p[AMAX + 1];
 #pragma unroll
     for (int a = 0; a <= AMAX; ++a) {
-      if constexpr (V != 3) {
-        p[a] = pn[a];
-        pn[a] = (a <= A && t + 1 < len && t + 1 < T) ? row[(size_t)(t + 1) * A1 + a] : 0.f;
-      } else {
-        p[a] = a <= A ? row[(size_t)t * A1 + a] : 0.f;
-      }
+      p[a] = pn[a];
+      pn[a] = (a <= A && t + 1 < len && t + 1 < T) ? row[(size_t)(t + 1) * A1 + a] : 0.f;
     }
 
     float lg[KMAX];
@@ -353,10 +353,9 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
     }
 
     // ---- top-K by (max key, tie -> min id) ----
-    // The narrow instances of versions 1 and 2 select in one pass; the rest
-    // in K rounds.  Both record each winner's source slot (nsrc); the
-    // hashes and labels are rebuilt after.  The ablation 'rounds' selects
-    // slot 0 alone (R = 1).
+    // The narrow instances select in one pass, the wide ones in K rounds.
+    // Both record each winner's source slot (nsrc); the hashes and labels
+    // are rebuilt after.  The ablation 'rounds' selects slot 0 alone (R = 1).
     constexpr int R = (ABL & kAblRounds) ? 1 : KMAX;
     float top = 0.f;
     float nlab[KMAX], ngap[KMAX];
@@ -381,7 +380,10 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
       for (int c = 0; c < CMAX; ++c) {
         const uint32_t kb = __float_as_uint(key[c]);
         const uint32_t ord = kb ^ ((kb >> 31) ? 0xffffffffu : 0x80000000u);
-        const uint32_t rank = c < KMAX ? (uint32_t)tie[c] : (uint32_t)c;
+        // a fresh candidate's rank is its id order, (k, a) lexicographic:
+        // a constant of the unrolled loop (V1, V2: the slot c itself)
+        const uint32_t rank = c < KMAX ? (uint32_t)tie[c]
+                                       : (uint32_t)(V == 3 ? KMAX + FK(c) * AMAX + FA(c) : c);
         const uint32_t lo = ((255u - rank) << 8) | (uint32_t)c;
         const unsigned long long x =
             key[c] > neg_inf() ? ((unsigned long long)ord << 32) | lo : 0ull;
@@ -412,7 +414,7 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
         for (int k = 0; k < KMAX; ++k)
 #pragma unroll
           for (int a = 0; a < AMAX; ++a)
-            if (c == KMAX + k * AMAX + a) sel_lab = mext[k][a];
+            if (c == SLOT(k, a)) sel_lab = mext[k][a];
         // the masked sums of the plain engine add +0.0: canonical -0.0
         sel_lab = __fadd_rn(sel_lab, 0.f);
         sel_gap = __fadd_rn(sel_gap, 0.f);
@@ -539,6 +541,7 @@ beam_ids_kernel(const float* __restrict__ probs, const float* __restrict__ init,
   }
 #undef FK
 #undef FA
+#undef SLOT
   // a frozen read logs the same entry ids for every remaining step
   if (!(ABL & kAblIdlog)) {
     for (int tt = t + 1; tt < T; ++tt) {

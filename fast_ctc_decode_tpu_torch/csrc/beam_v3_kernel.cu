@@ -7,11 +7,15 @@
 // with one tile op; on this card the candidates live in per-thread arrays,
 // and what carries over is the order: the expansion, the merge and the key
 // array run a outer, k inner, so p[a] and its threshold test are loaded once
-// per label.  Candidate ids stay t*K*A + k*A + a, so the selection, its ties
-// and the outputs equal versions 1 and 2 bit for bit.  beam_core.cuh
-// describes the versions, the design and the bounds.
+// per label.  Candidate ids stay t*K*A + k*A + a, so the outputs equal
+// versions 1 and 2 bit for bit.  It runs row 1's design for the card: one
+// thread per read, frame t+1 loaded during step t, and at <5, 4> the
+// one-pass selection, whose tie rank for a fresh candidate is its id order
+// (k, a), not its a-major slot.  beam_core.cuh describes the versions, the
+// design and the bounds.
 //
-// Two instances: <5, 4> and <16, 7>, as beam_kernel.cu.
+// Two instances: <5, 4> (one-pass selection) and <16, 7> (K selection
+// rounds: its one-pass list would spill, as version 2's did).
 
 #include "beam_core.cuh"
 

@@ -18,14 +18,16 @@ ctypes on PyTorch's current stream:
      ``design=`` forces one (for the probe and ``chip_smoke.py``; the
      decoders never pass it);
    - version 1 (``csrc/beam_v1_kernel.cu``) replaces ``_beam_kernel``
-     (own-hash identity), one thread per read, K selection rounds;
+     (own-hash identity);
    - version 3 (``csrc/beam_v3_kernel.cu``) replaces ``_beam_kernel3``
-     (version 2 with the candidates enumerated a-major), one thread per
-     read, K selection rounds.
+     (version 2 with the candidates enumerated a-major).
 
-   They exist side by side for the A/B tool ``tools/ab_bench.py``, as
-   ``beam_search_pallas_batch(version=...)`` does in the JAX package;
-   versions 1 and 3 keep the first design as its yardstick.
+   Versions 1 and 3 run version 2's thread design at every B: one thread
+   per read, the frame loaded a step ahead, and at beam <= 5 and A+1 <= 5
+   the one-pass selection (K selection rounds above that).  They exist
+   side by side for the A/B tool ``tools/ab_bench.py``, as
+   ``beam_search_pallas_batch(version=...)`` does in the JAX package, and
+   differ only in the TPU's identity and enumeration schemes.
  - ``traceback_kernel`` (``csrc/traceback_kernel.cu``) replaces
    ``beam_pallas.py::_traceback_kernel`` plus the key sort of
    ``beam_fast._sort_unpack_keys``: one warp per 32 reads, one lane a read,

@@ -7,11 +7,12 @@ mismatch; then it times each version's beam kernel alone (``raw=True``: the
 forward beam, CUDA events) and the full pipeline (beam kernel + traceback
 kernel), median of ``iters`` runs, with reads/s.
 
-Versions 1 and 2 run the same design, one thread per read with the frame
+The three versions run the same design, one thread per read with the frame
 loaded a step ahead and, at beam <= 5 and A+1 <= 5, a one-pass selection;
-they differ in the TPU's identity schemes (version 1: own hashes, each tip
-tested against the K extensions of its last label; version 2: parent
-hashes).  Version 3 (a-major) keeps the first design, K selection rounds.
+they differ in the TPU's identity and enumeration schemes (version 1: own
+hashes, each tip tested against the K extensions of its last label;
+version 2: parent hashes; version 3: parent hashes with the candidates
+enumerated a-major, ranked in ties by id as the others are).
 Below ``beam_cuda.THREAD_MIN_B`` reads version 2 runs one warp per read
 (``beam_cuda.design_for``) while versions 1 and 3 stay one thread per read:
 there the tool compares designs, not only identity schemes.  All three must

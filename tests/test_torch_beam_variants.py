@@ -7,8 +7,13 @@ and, with ``raw=True``, the kernel outputs (the id log against the
 ``[:T, :K, :B]`` corner of JAX's padded log, fin, err).  On the CPU every
 version runs the one plain function they all compute; the CUDA kernels are
 held to it on the card by chip_smoke.py.  Inputs are made with numpy from a
-seed and handed to both packages.
+seed and handed to both packages; the tie cases are ``chip_smoke.py``'s
+(powers of two, so that fresh extensions of different tips tie inside the
+beam and only the id order (k, a) breaks the tie).
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -16,6 +21,9 @@ import torch
 
 from fast_ctc_decode_tpu.ops import beam_pallas as jax_beam_pallas
 from fast_ctc_decode_tpu_torch.ops import beam_cuda
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (the tie cases held on the card)
 
 torch.set_num_threads(1)
 
@@ -42,10 +50,15 @@ def case(name):
         return rand_batch(3, 20, 5, 7), np.full((3,), 20, np.int32), 0.05, 1, True
     if name == "no_collapse":
         return rand_batch(2, 20, 4, 3), np.full((2,), 20, np.int32), 0.0, 3, False
+    if name.startswith("ties"):
+        (_, probs, lengths, thr, K, collapse), = (
+            c for c in chip_smoke.parity_cases(full_width=False) if c[0] == name)
+        return probs, np.array(lengths, np.int32), thr, K, collapse
     raise KeyError(name)
 
 
-CASES = ["ragged", "nan_and_empty", "zero_lengths", "beam1", "no_collapse"]
+CASES = ["ragged", "nan_and_empty", "zero_lengths", "beam1", "no_collapse", "ties",
+         "ties_cut0.1"]
 
 
 @pytest.mark.parametrize("version", [1, 2, 3])
