@@ -136,12 +136,25 @@ Phases, each of which raises on failure (exit code non-zero):
      batch request, 64 concurrent single reads (600-1000 frames) equal to
      ``api.beam_search`` in fewer than 64 micro-batches, a malformed request
      answered 400 on its own; then ``distributed_init`` (world size 1, NCCL)
-     and ``decode_and_count`` with totals [B, 0].
+     and ``decode_and_count`` with totals [B, 0];
+  16. the measurement tools and the demo through their entry points, each
+     between a reset and a read of every launch counter: ``bench_torch.py``
+     at its default (B=32768, T=1000, engine ``cuda``, its oracle gate;
+     printed beside phase 5's beam + traceback kernel ms) and with the plain
+     engine at B=4096 (no kernel may launch); ``tools.benchmark`` in its
+     default mode and with ``--full --quick``; ``tools.bench_exact_duplex``
+     at B=256, plain and ``--crf``; ``tools.scaling_bench overhead --engine
+     cuda`` (the kernels' path; the plain engine's calls of seconds are left to
+     the CPU tests), ``hosts --nproc 1`` and ``--nproc 2``
+     (with one card its n=2 row must say it was not measured); the demo
+     ``examples/basecall_demo_torch.py`` at its defaults (256 reads: the
+     warp design).
 The line before the last is a JSON object describing the kernels (one entry
 per TPU kernel, and the viterbi run-means kernel, which has no Pallas
 counterpart; each with its launches on its path, its kernel-vs-plain
 difference, its time, its plain version's time and its bound: the larger of
-its bytes over the HBM rate and its f32 operations over the f32 rate); the
+its bytes over the HBM rate and its f32 operations over the f32 rate; and
+``tools_launches``, phase 16's launches of it by tool); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 outside the repository, it exits non-zero and prints no result.
 """
@@ -1575,6 +1588,102 @@ def serving_phase(torch, dev, smi, oracle, counts, reset_counts):
     log(f"distributed_init (world size 1, {backend}) + decode_and_count: totals "
         f"{totals.tolist()} after all_reduce")
 
+
+#: the launch counters behind each row of the kernels line
+ROW_COUNTERS = {
+    "beam_ids_kernel": ("beam", "beam_warp"),
+    "traceback_kernel": ("traceback", "traceback_walk"),
+    "beam_ids_kernel_v1": ("beam_v1",),
+    "beam_ids_kernel_v3": ("beam_v3",),
+    "crf_beam_ids_kernel": ("crf_beam",),
+    "exact_beam_kernel": ("exact",),
+    "exact_beam_kernel_crf": ("exact_crf",),
+    "duplex_slot_kernel": ("duplex",),
+    "duplex_exact_kernel": ("duplex_exact", "duplex_exact_crf"),
+    "beam_ablate_kernel": (),
+    "viterbi_run_means_kernel": ("viterbi_runs",),
+}
+
+
+def tools_phase(torch, dev, smi, main_kernel_ms):
+    """Phase 16: the measurement tools and the demo through their entry points
+    on the card, each between a reset and a read of every launch counter
+    (``hosts``: the counters its workers report); fails if a kernel the tool
+    must run never launched, or a plain-engine run launched one.  Returns
+    {tool: {counter: launches}}."""
+    import importlib.util
+
+    import bench_torch
+    from fast_ctc_decode_tpu_torch.ops import beam_cuda, beam_exact_cuda, duplex_cuda
+    from fast_ctc_decode_tpu_torch.ops import duplex_exact_cuda, viterbi_cuda
+    from fast_ctc_decode_tpu_torch.tools import bench_exact_duplex, benchmark, scaling_bench
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "basecall_demo_torch.py")
+    spec = importlib.util.spec_from_file_location("basecall_demo_torch", path)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    mods = (beam_cuda, beam_exact_cuda, duplex_cuda, duplex_exact_cuda, viterbi_cuda)
+    torch.cuda.empty_cache()
+    launched = {}
+
+    def drive(tool, fn, want, none=False):
+        for m in mods:
+            m.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for m in mods for k, v in m.launches.items() if v}
+        for r in result if isinstance(result, list) else [result]:
+            if isinstance(r, dict) and r.get("mode") == "hosts":  # its workers' counters
+                for k, v in r.get("launches", {}).items():
+                    got[k] = got.get(k, 0) + v
+        launched[tool] = got
+        log(f"phase 16 {tool}: {wall:.1f} s, launches {got} [{smi}]")
+        missing = [k for k in want if got.get(k, 0) < 1]
+        if missing or (none and got):
+            raise AssertionError(f"{tool}: launches {got}, expected {want or 'none'}")
+        return result
+
+    row = drive("bench_torch", lambda: bench_torch.main({}), ["beam", "traceback"])
+    k_ms = main_kernel_ms["beam kernel"] + main_kernel_ms["traceback kernel"]
+    log(f"bench_torch (B={row['B']}, cuda): {row['value']!r} reads/s, kernels "
+        f"{row['kernels_ms']!r} ms, decode {row['decode_ms']!r} ms; phase 5 of this run: beam "
+        f"{main_kernel_ms['beam kernel']!r} + traceback {main_kernel_ms['traceback kernel']!r} "
+        f"= {k_ms!r} ms ({row['B'] / (k_ms / 1e3)!r} reads/s) [{smi}]")
+    if row["vs_baseline"] is not None or row["engine"] != "cuda" or row["B"] != B_MAIN:
+        raise AssertionError(f"bench_torch row {row}")
+    drive("bench_torch fast B=4096", lambda: bench_torch.main(
+        {"BENCH_ENGINE": "fast", "BENCH_BATCH": "4096"}), [], none=True)
+    drive("tools.benchmark", lambda: benchmark.main([]), ["beam_warp", "traceback", "exact"])
+    drive("tools.benchmark --full --quick", lambda: benchmark.main(["--full", "--quick"]),
+          ["beam_warp", "traceback", "exact", "crf_beam", "exact_crf", "duplex", "duplex_exact",
+           "duplex_exact_crf"])
+    drive("tools.bench_exact_duplex 256", lambda: bench_exact_duplex.main(["256"]),
+          ["duplex_exact"])
+    drive("tools.bench_exact_duplex 256 --crf", lambda: bench_exact_duplex.main(["256", "--crf"]),
+          ["duplex_exact_crf"])
+    drive("tools.scaling_bench overhead --engine cuda",
+          lambda: scaling_bench.main(["overhead", "--engine", "cuda"]), ["beam_warp", "traceback"])
+    drive("tools.scaling_bench hosts --nproc 1",
+          lambda: scaling_bench.main(["hosts", "--nproc", "1"]), ["beam_warp", "traceback"])
+    rows = drive("tools.scaling_bench hosts --nproc 2",
+                 lambda: scaling_bench.main(["hosts", "--nproc", "2"]), ["beam_warp", "traceback"])
+    cards = torch.cuda.device_count()
+    if cards < 2 and rows[-1].get("unmeasured") != f"needs 2 CUDA cards, found {cards}":
+        raise AssertionError(f"hosts --nproc 2 on {cards} card(s): {rows[-1]}")
+    res = drive("examples/basecall_demo_torch.py", lambda: demo.run(),
+                ["beam_warp", "traceback", "viterbi_runs"])
+    if res["engine"] != "cuda" or res["design"] != "warp" or len(res["beam"]) != 256 or any(
+            r[2] != 0 for r in res["beam"]):
+        raise AssertionError(f"demo: engine {res['engine']} design {res['design']}")
+    if not launched["examples/basecall_demo_torch.py"].keys() & {"duplex", "duplex_exact"}:
+        raise AssertionError("demo: the duplex consensus launched no duplex kernel")
+    return launched
+
+
 def exact_launch_shapes(build_log):
     """Log what ptxas reports for the exact tree kernel's four instances, and
     how many blocks of four reads (warps) one SM holds for each."""
@@ -2208,6 +2317,9 @@ def main(argv=None):
     abl = ablate_phase(torch, dev, smi)
     serving_phase(torch, dev, smi, oracle, counts, reset_counts)
 
+    # ---- phase 16: the measurement tools and the demo on the card ----
+    tools_launches = tools_phase(torch, dev, smi, ms)
+
     if "jax" in sys.modules or any(m.startswith("fast_ctc_decode_tpu.") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     log(f"total wall time: {time.perf_counter() - run_t0:.1f} s")
@@ -2238,7 +2350,7 @@ def main(argv=None):
     bp = "fast_ctc_decode_tpu/ops/beam_pallas.py:"
     old_ms = lambda name: parent_ms[name][0] if name in parent_ms else None
     regs = lambda *names: {n: beam_regs.get(n) for n in names}
-    print(json.dumps({"kernels": [
+    kernels = [
         row("beam_ids_kernel", "beam_kernel.cu", bp + "367", launches[beam_counter(main_design)],
             max(err_beam["thread"], err_beam["warp"], *err_main_b.values(), err_wide),
             ms["beam kernel"], ms["plain beam"],
@@ -2312,7 +2424,12 @@ def main(argv=None):
                  "fast_ctc_decode_tpu/ops/viterbi.py:96)", path_launches["viterbi_runs"], v_err,
                  new_ms["viterbi run-means kernel"], new_ms["plain viterbi run means"], b_vit),
              library_ms=new_ms["library scatter_reduce mean"]),
-    ]}))
+    ]
+    for r in kernels:  # phase 16's launches of the row's kernel, by tool
+        r["tools_launches"] = {
+            tool: n for tool, got in tools_launches.items()
+            if (n := sum(got.get(c, 0) for c in ROW_COUNTERS[r["name"]]))}
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

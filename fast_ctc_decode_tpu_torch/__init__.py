@@ -18,7 +18,10 @@ Public surface:
 Beside it: the JSON/HTTP service ``serve`` (``python -m
 fast_ctc_decode_tpu_torch.serve``), the process-group helpers
 ``parallel.mesh`` (one process per card, torch.distributed), and the
-kernel measurement tools ``tools.ab_bench`` and ``tools.kernel_ablate``.
+measurement tools under ``tools`` (``python -m
+fast_ctc_decode_tpu_torch.tools.<name>``).  Beside the package:
+``bench_torch.py`` (the headline benchmark) and
+``examples/basecall_demo_torch.py``.
 
 Every entry point takes ``device``: None (the default) is the CUDA card and
 raises RuntimeError without one; ``device="cpu"`` runs the plain engines.

@@ -1,2 +1,4 @@
-"""Measurement tools of the port, run with ``python -m``: the A/B bench of the
-beam kernel versions (``ab_bench``) and the phase ablation (``kernel_ablate``)."""
+"""Measurement tools of the port, run with ``python -m``: the kernel probes
+(``ab_bench``, ``kernel_ablate``, ``exact_probe``, ``kernel_probe``) and the
+counterparts of the JAX package's tools (``benchmark``, ``bench_exact_duplex``,
+``scaling_bench``; their shared inputs in ``workloads``)."""
