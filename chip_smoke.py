@@ -54,9 +54,11 @@ Phases, each of which raises on failure (exit code non-zero):
      per read, beam 16, A+1 = 8; and one warp per read) and the wide
      instances of versions 1 and 3 on inputs of that width, bit for bit;
      times both kernels (the beam kernel in both designs, its wide instance
-     in both, those of versions 1 and 3),
+     in both and in the design the wrapper routes it to, printed beside the
+     faster one, those of versions 1 and 3),
      ``decode_arrays``, ``decode`` and the plain engine there
-     (CUDA-synchronised medians of 5 runs); holds both traceback routes to
+     (CUDA-synchronised medians of 5 runs; the plain beam and the plain
+     engine, seconds a call, of 3); holds both traceback routes to
      the plain version on the main path's log, on its first 1 and 33 reads,
      on logs of every kind of node id (``random_log``: the duplex slot
      log's widths K=32/A=1 and K=4/A=8, and 1-8 warps a block) and at the
@@ -65,8 +67,10 @@ Phases, each of which raises on failure (exit code non-zero):
      (both instances), 10 and 2 (both B) beside the parent's kernels in
      turns (parent, new, new, parent) after checking equal outputs; then
      ``tools.kernel_probe`` (the main path's stages, both designs at B = 1
-     ... 32768, the warp design at 1-8 reads a block, both traceback routes
-     at B = 1 ... 32768 and the sweep's blocks and tiles at B=32768);
+     ... 32768 at beam 5, A+1 = 5 and at the wide instance's two shapes,
+     beam 16 at A+1 = 8 and beam 8 at A+1 = 5, the warp design at 1-8 reads
+     a block, both traceback routes at B = 1 ... 32768 and the sweep's
+     blocks and tiles at B=32768; medians of 3);
   6. drives the paths of the single-read API and the CRF family at full
      width: ``BatchBeamDecoder(engine="exact")`` (T=1000, B=1024),
      ``BatchCrfBeamDecoder`` with the CUDA engine (T=400, S=64, B=1024) and
@@ -119,7 +123,12 @@ Phases, each of which raises on failure (exit code non-zero):
      full-range log, and the duplex decoders' ``decode_arrays`` / ``decode``,
      the CRF tree kernel's launches on the constant-window full range alone
      (CUDA events around each launch inside ``decode``, summed), and holds
-     the full-width kernel outputs to the plain ones;
+     the full-width kernel outputs to the plain ones; then the CRF full range
+     through the exact engine in chunks sized from the card's free memory
+     and forced to the CPU's 2 GB chunks: each chunk size and launch count
+     (as ``pipeline.exact_launch_pairs`` gives), 0 differing entries and
+     equal statuses between the two, both timed in turns, and the bytes the
+     caching allocator keeps reserved after each;
   13. the A/B path (``tools.ab_bench``) at B=32768, T=1000: versions 1
      (own-hash), 2 (parent-hash) and 3 (parent-hash, candidates a-major),
      all three selecting in one pass, equal on all four fields, each
@@ -184,6 +193,7 @@ FIELDS = ("labels_rev", "times_rev", "count", "err")
 B_DUP, T_DUP, S_DUP, W_DIAG, DUP_THR = 256, 500, 16, 40, 0.0  # duplex full width
 DUP_FIELDS = ("labels_rev", "count", "err")
 ORACLE_SAMPLES = 4
+CHUNK_SWEEP = (1, 16, 49, 132, 256)  # pairs of one CRF full-range launch, timed alone
 TESTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 
 
@@ -1127,9 +1137,10 @@ def duplex_launch_shapes(build_log):
         log(f"duplex_slot_kernel {what} (beam {BEAM}, Wk {Wk}): block {sh['block']} threads, "
             f"{sh['smem']} bytes of dynamic shared memory, {sh['blocks_per_sm']} blocks per SM, "
             f"slab {4 * duplex_cuda.slab_words(BEAM, A, Wk)} bytes per pair")
-    for crf in (False, True):
-        sh = duplex_exact_cuda.launch_shape(BEAM, 2 * W_DIAG + 3, crf=crf)
-        log(f"duplex_exact_kernel{' CRF' if crf else ''} diag{W_DIAG} (beam {BEAM}): block "
+    for crf, what, W in ((False, f"diag{W_DIAG}", 2 * W_DIAG + 3),
+                         (True, f"diag{W_DIAG}", 2 * W_DIAG + 3), (True, "full range", T_DUP + 1)):
+        sh = duplex_exact_cuda.launch_shape(BEAM, W, crf=crf)
+        log(f"duplex_exact_kernel{' CRF' if crf else ''} {what} (beam {BEAM}, W {W}): block "
             f"{sh['block']} threads, {sh['smem']} bytes of dynamic shared memory, "
             f"{sh['blocks_per_sm']} blocks per SM")
 
@@ -1191,6 +1202,92 @@ def duplex_kernel_times(torch, dev, smi, dn1, dn2, c1, i1, c2, i2, diag):
         del inp, got, want
         torch.cuda.empty_cache()
     return rows, bounds
+
+
+def crf_full_range_chunks(torch, dev, smi, c1, i1, c2, i2, log_counts):
+    """Phase 12's chunk check: the CRF full range through the exact engine in
+    the chunks sized from the card's free memory, held to a run forced to
+    the CPU's 2 GB chunks on the same inputs (0 differing entries, equal
+    statuses), each in the launches ``exact_launch_pairs`` gives; both timed
+    in turns (the tree kernel's launches alone, CUDA events around each,
+    summed; and the engine's wall); returns the figures for the kernels
+    line."""
+    from fast_ctc_decode_tpu_torch.ops import duplex_exact_cuda
+    from fast_ctc_decode_tpu_torch.parallel import pipeline
+
+    batch = pipeline.prep_duplex_batch(c1, c2, None, None, DUP_THR, T1=T_DUP, T2=T_DUP,
+                                       init1=i1, init2=i2)
+    budgets = {"sized": None, "2 GB": pipeline.EXACT_CHUNK_BYTES}
+
+    def run(budget):
+        return pipeline.run_duplex_engine("exact", batch, dev, beam_size=BEAM, collapse=False,
+                                          crf=True, budget_bytes=budget)
+
+    per_pair = 4 * duplex_exact_cuda.scratch_stride(batch.max_nodes(BEAM), BEAM,
+                                                    len(ALPHABET) - 1, batch.W)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out, fig = {}, {}
+    for what, budget in budgets.items():
+        chunk = pipeline.exact_launch_pairs(batch, dev, beam_size=BEAM, crf=True,
+                                            budget_bytes=budget)
+        free = torch.cuda.mem_get_info(dev)[0]
+        log_counts.reset()
+        out[what] = run(budget)
+        torch.cuda.synchronize()
+        launched = log_counts.read()["duplex_exact_crf"]
+        want = -(-B_DUP // chunk)
+        fig[what] = {"chunk_pairs": chunk, "launches": launched,
+                     "reserved_bytes": torch.cuda.memory_reserved(dev)}
+        log(f"duplex CRF full range B={B_DUP} T1=T2={T_DUP} S={S_DUP}, {what} chunks: "
+            f"{chunk} pairs a launch (W {batch.W}, {per_pair} bytes of scratch a pair; {free} "
+            f"bytes free before), {launched} launches (expected {want}); the "
+            f"caching allocator keeps {fig[what]['reserved_bytes']} bytes reserved after it")
+        if launched != want:
+            raise AssertionError(f"CRF full range, {what} chunks: {launched} launches, "
+                                 f"expected {want}")
+    d = max(max_abs_diff(out["sized"][k], out["2 GB"][k]) for k in DUP_FIELDS)
+    if d or not torch.equal(out["sized"]["err"], out["2 GB"]["err"]):
+        raise AssertionError(f"CRF full range: sized chunks != 2 GB chunks (max_abs_err {d})")
+    if bool((out["sized"]["err"] != 0).any()):
+        raise AssertionError("CRF full range through the exact engine: status codes not all OK")
+    del out
+    # in turns, three of each
+    times = {what: [] for what in budgets}
+    walls = {what: [] for what in budgets}
+    for what in ("sized", "2 GB", "2 GB", "sized", "sized", "2 GB"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k_ms, _ = launch_event_ms(torch, duplex_exact_cuda, "duplex_exact_kernel_batch",
+                                  lambda w=what: run(budgets[w]))
+        walls[what].append((time.perf_counter() - t0) * 1e3)
+        times[what].append(k_ms)
+    for what in budgets:
+        fig[what]["kernel_ms"] = statistics.median(times[what])
+        fig[what]["wall_ms"] = statistics.median(walls[what])
+        log(f"time duplex CRF full range B={B_DUP} T1=T2={T_DUP} S={S_DUP}, {what} chunks "
+            f"({fig[what]['launches']} launches): kernels {fig[what]['kernel_ms']!r} ms "
+            f"(each: {', '.join(f'{t:.3f}' for t in times[what])}), engine wall "
+            f"{fig[what]['wall_ms']!r} ms; max_abs_err against the other {d} [{smi}]")
+    fig["max_abs_err"] = d
+    # one launch of the first b pairs: how a launch's time grows with the
+    # pairs resident beside each other
+    fig["one_launch_ms"] = {}
+    for b in CHUNK_SWEEP:
+        sub = batch._replace(**{k: getattr(batch, k)[:b] for k in (
+            "l1", "l2", "root_gap", "lo", "hi", "init_states", "lengths")})
+        one = lambda sub=sub: pipeline.run_duplex_engine(
+            "exact", sub, dev, beam_size=BEAM, collapse=False, crf=True)
+        one()
+        t = [launch_event_ms(torch, duplex_exact_cuda, "duplex_exact_kernel_batch", one)
+             for _ in range(3)]
+        if any(n != 1 for _, n in t):
+            raise AssertionError(f"CRF full range, first {b} pairs: {t[0][1]} launches, not 1")
+        fig["one_launch_ms"][b] = statistics.median(ms for ms, _ in t)
+    log(f"time duplex CRF full range T1=T2={T_DUP} S={S_DUP}, one launch of the first b pairs "
+        f"(CUDA events, median of 3): "
+        f"{', '.join(f'b={b}: {ms:.3f} ms' for b, ms in fig['one_launch_ms'].items())} [{smi}]")
+    return fig
 
 
 def duplex_phases(torch, dev, smi, log_counts):
@@ -1330,6 +1427,7 @@ def duplex_phases(torch, dev, smi, log_counts):
     log(f"time duplex CRF auto full range {shape} S={S_DUP}, the CRF tree kernel's "
         f"{cfull[0][1]} launches alone (CUDA events around each, summed): median of 3 "
         f"{cfull_ms!r} ms (each: {', '.join(f'{t:.3f}' for t, _ in cfull)}) [{smi}]")
+    chunks = crf_full_range_chunks(torch, dev, smi, c1, i1, c2, i2, log_counts)
 
     src = "fast_ctc_decode_tpu_torch/csrc/"
     tb = {"err": rows["traceback"][0], "ms": rows["traceback"][1],
@@ -1351,7 +1449,7 @@ def duplex_phases(torch, dev, smi, log_counts):
          "bound_ms": bounds["tree"][0], "bound_by": bounds["tree"][1], "library_ms": None,
          "crf_launches": l_cdiag["duplex_exact_crf"],
          "crf_full_range_launches": res["launches"]["crf_full"]["duplex_exact_crf"],
-         "crf_full_range_ms": cfull_ms,
+         "crf_full_range_ms": cfull_ms, "crf_full_range_chunks": chunks,
          "crf_ms": rows["tree crf"][0], "crf_plain_ms": rows["tree crf"][1]},
     ]
 
@@ -1492,7 +1590,7 @@ def serving_phase(torch, dev, smi, oracle, counts, reset_counts):
         reset_counts()
         status, out, batch_s = post(body)
         launched = counts()
-        if (status != 200 or launched[beam_counter(beam_cuda.design_for(Bs))] < 1
+        if (status != 200 or launched[beam_counter(beam_cuda.design_for(Bs, BEAM, len(ALPHABET) - 1))] < 1
                 or launched["traceback"] < 1):
             raise AssertionError(f"serve batch beam request: status {status}, launches {launched}")
         want = BatchBeamDecoder(ALPHABET, T=T_MAIN, beam_size=BEAM, beam_cut_threshold=THR,
@@ -1897,7 +1995,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     res = dec.decode(probs_d, lengths_d)
     main_s = time.perf_counter() - t0
-    main_design = beam_cuda.design_for(B_MAIN)
+    main_design = beam_cuda.design_for(B_MAIN, BEAM, len(ALPHABET) - 1)
     launches = {k: beam_cuda.launches[k]
                 for k in ("beam", "beam_warp", *beam_cuda.TRACEBACK_ROUTES.values())}
     main_route = beam_cuda.traceback_route(T_MAIN, BEAM)[0]
@@ -1974,10 +2072,13 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(46)
     wide = torch.rand((B_MAIN, T_MAIN, WIDE_A1), generator=g, device=dev)
     wide /= torch.linalg.vector_norm(wide, dim=-1, keepdim=True)
+    # both designs forced, and the design the wrapper routes the instance to
+    wide_routed = beam_cuda.design_for(B_MAIN, WIDE_BEAM, WIDE_A1 - 1)
     wide_fn = {d: (lambda d=d: beam_cuda.beam_ids_kernel(
-        wide, lengths_d, THR, beam_size=WIDE_BEAM, design=d)) for d in beam_cuda.DESIGNS}
+        wide, lengths_d, THR, beam_size=WIDE_BEAM, design=d))
+        for d in (*beam_cuda.DESIGNS, None)}
     wide_plain = beam_cuda.beam_ids_plain(wide, lengths_d, THR, beam_size=WIDE_BEAM)
-    err_wide_d = {d: max(max_abs_diff(x, y) for x, y in zip(fn(), wide_plain))
+    err_wide_d = {d or "routed": max(max_abs_diff(x, y) for x, y in zip(fn(), wide_plain))
                   for d, fn in wide_fn.items()}
     err_wide = max(err_wide_d.values())
     log(f"wide instance beam {WIDE_BEAM} A+1={WIDE_A1} B={B_MAIN} T={T_MAIN}: max_abs_err "
@@ -2019,35 +2120,52 @@ def main(argv=None):
         "traceback kernel": tb_ms[(main_route, B_MAIN)],
         "decode_arrays": median_ms(lambda: dec.decode_arrays(probs_d, lengths_d), torch),
         "decode (with detok)": median_ms(lambda: dec.decode(probs_d, lengths_d), torch),
-        "plain beam": median_event_ms(
-            lambda: beam_cuda.beam_ids_plain(probs_d, lengths_d, THR, beam_size=BEAM), torch),
+        "plain beam": median_event_ms(  # seconds a call: a median of 3
+            lambda: beam_cuda.beam_ids_plain(probs_d, lengths_d, THR, beam_size=BEAM), torch,
+            repeats=3),
         "plain traceback": median_event_ms(
             lambda: beam_cuda.traceback_plain(fin, ids_log, T=T_MAIN, K=BEAM, A=4), torch),
         "traceback kernel, one call": median_event_ms(
             lambda: beam_cuda.traceback_kernel(fin, ids_log, T=T_MAIN, K=BEAM, A=4), torch),
         "plain engine": median_ms(
             lambda: beam_fast.beam_search_fast_batch(probs_d, lengths_d, THR, beam_size=BEAM),
-            torch),
-        **{f"beam kernel <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1}), {d} design": median_event_ms(
-            fn, torch) for d, fn in wide_fn.items()},
+            torch, repeats=3),
+        **{f"beam kernel <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1}), "
+           f"{f'{d} design' if d else f'routed ({wide_routed} design)'}": median_event_ms(
+               fn, torch) for d, fn in wide_fn.items()},
         **{f"beam kernel v{v} <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1})": median_event_ms(
             fn, torch) for v, fn in wide_v.items()},
     }
     for name, t in ms.items():
         log(f"time {name} B={B_MAIN} T={T_MAIN}: {t!r} ms "
             f"({B_MAIN / (t / 1e3):.1f} reads/s) [{smi}]")
+    wide_ms = {d: ms[f"beam kernel <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1}), {d} design"]
+               for d in beam_cuda.DESIGNS}
+    wide_ms["routed"] = ms[f"beam kernel <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1}), "
+                           f"routed ({wide_routed} design)"]
+    wide_best = min(beam_cuda.DESIGNS, key=wide_ms.get)
+    log(f"wide instance beam {WIDE_BEAM} A+1={WIDE_A1} B={B_MAIN} T={T_MAIN}: the wrapper "
+        f"routes it to the {wide_routed} design ({wide_ms['routed']!r} ms; forced: "
+        f"{wide_routed} {wide_ms[wide_routed]!r} ms, "
+        f"{'warp' if wide_routed == 'thread' else 'thread'} "
+        f"{wide_ms['warp' if wide_routed == 'thread' else 'thread']!r} ms); the {wide_best} "
+        f"design is faster; routed / faster = {wide_ms['routed'] / wide_ms[wide_best]:.4f} "
+        f"[{smi}]")
     parent_ms = {}
     if parent is not None:
         parent_ms = parent_turns(torch, smi, parent, probs_d, lengths_d, wide,
                                  ((fin, ids_log), (fin_s, ids_s)))
     del wide
-    probe = kernel_probe.run(B_MAIN, T_MAIN, device=dev)
+    probe = kernel_probe.run(B_MAIN, T_MAIN, device=dev, iters=3)
     for line, _ in probe:
         log(line)
-    design_ms, tb_probe, tb_block = {}, {}, {}
+    design_ms, wide_design_ms, tb_probe, tb_block = {}, {}, {}, {}
     for _, r in probe:
-        if r["what"] == "design":
+        if r["what"] == "design" and (r["beam"], r["A1"]) == (BEAM, len(ALPHABET)):
             design_ms.setdefault(str(r["B"]), {})[r["design"]] = r["ms"]
+        elif r["what"] == "design":
+            wide_design_ms.setdefault(f"beam {r['beam']} A+1={r['A1']}", {}).setdefault(
+                str(r["B"]), {})[r["design"]] = r["ms"]
         elif r["what"] == "traceback":
             tb_probe.setdefault(str(r["B"]), {})[r["route"]] = r["ms"]
         elif r["what"] == "traceback_block":
@@ -2356,12 +2474,14 @@ def main(argv=None):
             ms["beam kernel"], ms["plain beam"],
             b_beam, version=2, design=main_design, warp_source=src + "beam_warp_kernel.cu",
             thread_min_b=beam_cuda.THREAD_MIN_B,
-            design_by_b={b: beam_cuda.design_for(int(b)) for b in design_ms},
+            design_by_b={b: beam_cuda.design_for(int(b), BEAM, A1 - 1) for b in design_ms},
             design_ms=design_ms, warp_ms=ms["beam kernel, warp design"],
             small_b_launches={"beam_warp": many_launches["beam_warp"]},
             parent_ms=old_ms("row 1 beam v2"),
-            wide_ms={d: ms[f"beam kernel <16, 7> (beam {WIDE_BEAM}, A+1={WIDE_A1}), {d} design"]
-                     for d in beam_cuda.DESIGNS},
+            wide_ms=wide_ms, wide_routed=wide_routed,
+            wide_design_ms=wide_design_ms,
+            wide_design_by_b={b: beam_cuda.design_for(int(b), WIDE_BEAM, WIDE_A1 - 1)
+                              for b in design_ms},
             wide_parent_ms=old_ms("row 1 beam v2 <16, 7>"),
             registers=regs("beam_ids_kernel<5, 4> v2", "beam_ids_kernel<16, 7> v2",
                            "beam_warp_kernel<5, 4>"),

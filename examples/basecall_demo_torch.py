@@ -87,7 +87,7 @@ def run(reads=256, T=300, device=None, log=print):
     # --- batched prefix beam search ---
     dec = BatchBeamDecoder(ALPHABET, T=probs.shape[1], beam_size=5, beam_cut_threshold=0.1,
                            device=dev)
-    design = beam_cuda.design_for(reads) if dec.engine == "cuda" else None
+    design = beam_cuda.design_for(reads, 5, len(ALPHABET) - 1) if dec.engine == "cuda" else None
     log(f"beam   : engine {dec.engine!r} picked by auto"
         f"{f' ({design} design: B={reads})' if design else ''}")
     results, dt = wall(lambda: dec.decode(probs, lengths))

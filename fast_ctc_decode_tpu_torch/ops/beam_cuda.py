@@ -10,9 +10,9 @@ ctypes on PyTorch's current stream:
 
    - version 2, the default, replaces
      ``fast_ctc_decode_tpu/ops/beam_pallas.py::_beam_kernel2`` (parent-hash
-     identity) in two designs, routed by the batch size alone: at
-     ``B >= THREAD_MIN_B`` one thread per read with a one-pass selection
-     (``csrc/beam_kernel.cu``), below it one warp per read
+     identity) in two designs, routed by ``design_for`` from the batch size
+     and the kernel instance: one thread per read with a one-pass selection
+     (``csrc/beam_kernel.cu``) or one warp per read
      (``csrc/beam_warp_kernel.cu``), which fills the card where a thread
      per read leaves most SMs idle.  Both give the same outputs;
      ``design=`` forces one (for the probe and ``chip_smoke.py``; the
@@ -75,8 +75,16 @@ VERSIONS = {
 
 MAX_BEAM = 16  # per-thread beam arrays of the widest kernel instance
 MAX_A1 = 8  # blank + at most 7 labels
-#: version 2 runs one thread per read from this batch size on, one warp per
-#: read below it (set from ``tools/kernel_probe.py``'s times, PERF.md)
+#: (KMAX, AMAX) of the hash beam kernels' instances, narrowest first: beam K
+#: over A labels runs the first that holds it (``instance``)
+INSTANCES = ((5, 4), (MAX_BEAM, MAX_A1 - 1))
+#: version 2 at ``<5, 4>`` runs one thread per read from this batch size on,
+#: one warp per read below it (set from ``tools/kernel_probe.py``'s times at
+#: beam 5, A+1 = 5, PERF.md).  The wide instance ``<16, 7>`` runs one warp per
+#: read at every B: in the probe's wide sweep at T=1000 (NVIDIA H100 80GB
+#: HBM3, 700 W; thread / warp ms) beam 16, A+1 = 8 took B=1 123.26 / 9.99,
+#: 8192 194.95 / 57.97, 32768 358.86 / 217.78, and beam 8, A+1 = 5 B=1
+#: 83.38 / 4.40, 8192 133.22 / 24.47, 32768 237.95 / 91.58 (PERF.md)
 THREAD_MIN_B = 8192
 DESIGNS = ("thread", "warp")
 MAX_READS_PER_BLOCK = 8  # csrc/beam_warp_kernel.cu: kMaxReadsPerBlock
@@ -121,9 +129,15 @@ def _check(x, name, dtype, shape, device):
         raise ValueError(f"unsupported device {device}")
 
 
-def design_for(B: int) -> str:
-    """The version-2 design that a batch of B reads runs."""
-    return "thread" if B >= THREAD_MIN_B else "warp"
+def instance(K: int, A: int) -> tuple:
+    """(KMAX, AMAX) of the kernel instance that beam K over A labels runs."""
+    return INSTANCES[0] if K <= INSTANCES[0][0] and A <= INSTANCES[0][1] else INSTANCES[1]
+
+
+def design_for(B: int, K: int, A: int) -> str:
+    """The version-2 design that a batch of B reads at beam K over A labels
+    runs: one thread per read only at ``<5, 4>`` from ``THREAD_MIN_B`` on."""
+    return "thread" if instance(K, A) == INSTANCES[0] and B >= THREAD_MIN_B else "warp"
 
 
 def _check_reads_per_block(rpb) -> int:
@@ -175,7 +189,7 @@ def beam_ids_kernel(
     probs: [B, T, A+1] f32 contiguous; lengths: [B] i32 on the same device.
     ``version`` (1, 2 or 3) picks the kernel on a CUDA tensor; every version
     computes the same outputs, so a CPU tensor runs the plain version for any.
-    Version 2 runs ``design_for(B)`` unless ``design`` ("thread" or "warp")
+    Version 2 runs ``design_for(B, K, A)`` unless ``design`` ("thread" or "warp")
     forces one; ``reads_per_block`` (1..8) sets the warp design's block.
     """
     _version(version)
@@ -193,7 +207,7 @@ def beam_ids_kernel(
         return beam_ids_plain(
             probs, lengths, thr, beam_size=K, collapse_repeats=collapse_repeats
         )
-    if version == 2 and (design or design_for(B)) == "warp":
+    if version == 2 and (design or design_for(B, K, A1 - 1)) == "warp":
         return _warp_launch(probs, None, lengths, thr, B=B, T=T, S=1, Si=1, A=A1 - 1, K=K,
                             collapse=collapse_repeats, crf=False, rpb=rpb)
     return _thread_launch(probs, lengths, thr, B=B, T=T, A=A1 - 1, K=K,

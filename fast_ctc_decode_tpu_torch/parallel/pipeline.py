@@ -532,7 +532,11 @@ def decode_many_crf(
 
 DUPLEX_ENGINES = ("cuda", "fast", "exact")
 #: bytes of exact-engine tree and band tables per call (one chunk of pairs)
+#: of the plain engine on the CPU (the JAX package's sizing for TPU HBM)
 EXACT_CHUNK_BYTES = 2_000_000_000
+#: share of the card's free memory that the tree kernel's scratch may take
+#: in one launch (the rest is left to fragmentation and other streams)
+EXACT_FREE_SHARE = 0.9
 
 
 class DuplexBatch(NamedTuple):
@@ -564,6 +568,15 @@ class DuplexBatch(NamedTuple):
         return duplex_ops._duplex_max_nodes(
             self.lo.shape[1], int(beam_size), self.l1.shape[-1] - 1, self.W
         )
+
+    def nbytes(self) -> int:
+        """Bytes of the batch's arrays on a device, with the engines' outputs
+        (labels_rev [B, T1], count, err; int32) twice: the chunks' and their
+        concatenation."""
+        B, T1 = self.lo.shape
+        arrays = (self.l1, self.l2, self.root_gap, self.lo, self.hi, self.init_states,
+                  self.lengths)
+        return sum(x.nbytes for x in arrays) + 2 * 4 * B * (T1 + 2)
 
 
 def prep_duplex_batch(net1, net2, envelopes, lengths, threshold, *, T1, T2, init1=None,
@@ -639,18 +652,69 @@ def auto_duplex_engine(lo, hi, device, beam_size: int, *, crf: bool = False) -> 
     return "cuda" if duplex_cuda.fits_shared_memory(int(beam_size), Wk) else "exact"
 
 
+def exact_chunk_pairs(B: int, per_pair: int, budget: int, wave: int = 0) -> int:
+    """Pairs of one exact-engine launch: as many as ``budget`` bytes hold at
+    ``per_pair`` bytes a pair, at most B (1 for an empty batch).  Where the
+    budget holds at least one ``wave`` (the pairs the card runs at once) but
+    not all B, a whole number of waves, so that no launch ends on a partial
+    wave.  Raises MemoryError when not even one pair fits."""
+    fit = budget // per_pair
+    if fit < 1:
+        raise MemoryError(
+            f"one pair's exact-engine scratch ({per_pair} bytes) exceeds the budget of "
+            f"{budget} bytes"
+        )
+    if fit >= B:
+        return max(B, 1)
+    if wave and fit >= wave:
+        fit -= fit % wave
+    return fit
+
+
+def exact_launch_pairs(batch: DuplexBatch, device, *, beam_size, crf, max_nodes=None,
+                       budget_bytes=None) -> int:
+    """Pairs of ``batch`` that one exact-engine call on ``device`` takes
+    (``exact_chunk_pairs``), at ``4 * scratch_stride`` bytes a pair.
+
+    ``budget_bytes`` None: on a CUDA device ``EXACT_FREE_SHARE`` of the
+    card's free memory (what ``cudaMemGetInfo`` reports free plus what PyTorch's
+    caching allocator holds unused), taken now, before the scratch exists,
+    less ``batch.nbytes()``, in whole waves of SMs x the tree kernel's
+    blocks per SM; on the CPU ``EXACT_CHUNK_BYTES``, at least one pair a
+    chunk."""
+    dev = torch.device(device)
+    K = int(beam_size)
+    N = batch.max_nodes(K) if max_nodes is None else int(max_nodes)
+    per_pair = 4 * duplex_exact_cuda.scratch_stride(N, K, batch.l1.shape[-1] - 1, batch.W)
+    B, wave = batch.lo.shape[0], 0
+    if budget_bytes is not None:
+        budget = int(budget_bytes)
+    elif dev.type == "cuda":
+        with torch.cuda.device(dev):
+            free = torch.cuda.mem_get_info(dev)[0]
+            free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+            budget = int(EXACT_FREE_SHARE * free) - batch.nbytes()
+            wave = (torch.cuda.get_device_properties(dev).multi_processor_count
+                    * duplex_exact_cuda.launch_shape(K, batch.W, crf=crf)["blocks_per_sm"])
+    else:
+        budget = max(EXACT_CHUNK_BYTES, per_pair)
+    return exact_chunk_pairs(B, per_pair, budget, wave)
+
+
 def run_duplex_engine(engine, batch: DuplexBatch, device, *, beam_size, collapse, crf,
-                      max_nodes=None):
+                      max_nodes=None, budget_bytes=None):
     """Decode a prepared batch with ``engine`` on ``device``: the result dict
     (labels_rev [B, T1], count [B], err [B]; int32 tensors on ``device``).
 
       - "cuda": the slot kernel, then the 1D traceback kernel (plain only);
       - "fast": the plain slot engine;
       - "exact": the tree kernel on CUDA, the plain tree engine on the CPU,
-        in chunks whose tables (bytes per pair: N*W*8 for the bands plus the
-        tree) stay within ``EXACT_CHUNK_BYTES``.  ``max_nodes`` defaults to
-        the JAX package's budget, so a pair overflows (NODE_OVERFLOW) exactly
-        where it does there."""
+        in chunks of ``exact_launch_pairs`` pairs (``budget_bytes`` as
+        there): on the card as many as its free memory holds, on the CPU as
+        many as ``EXACT_CHUNK_BYTES`` of tables hold.  A pair's result does
+        not depend on its chunk.  ``max_nodes`` defaults to the JAX
+        package's budget, so a pair overflows (NODE_OVERFLOW) exactly where
+        it does there."""
     K = int(beam_size)
     if engine != "exact":
         l1, l2, rg, lo, hi, thr, init, ln = batch.tensors(device)
@@ -665,10 +729,9 @@ def run_duplex_engine(engine, batch: DuplexBatch, device, *, beam_size, collapse
         )
     dev = torch.device(device)
     N = batch.max_nodes(K) if max_nodes is None else int(max_nodes)
-    A = batch.l1.shape[-1] - 1
     B = batch.lo.shape[0]
-    per_pair = 4 * duplex_exact_cuda.scratch_stride(N, K, A, batch.W)
-    chunk = max(int(EXACT_CHUNK_BYTES // per_pair), 1)
+    chunk = exact_launch_pairs(batch, dev, beam_size=K, crf=crf, max_nodes=N,
+                               budget_bytes=budget_bytes)
     fn = (
         duplex_exact_cuda.duplex_exact_kernel_batch
         if dev.type == "cuda"

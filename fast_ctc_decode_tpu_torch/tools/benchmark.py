@@ -120,7 +120,7 @@ def main(argv=None):
     rate(f"1D beam fast x{B}", B,
          lambda: beam_fast.beam_search_fast_batch(xs_d, ln_d, thr, beam_size=5), iters, "reads/s")
     if on_card:
-        rate(f"1D beam cuda ({beam_cuda.design_for(B)} design) x{B}", B,
+        rate(f"1D beam cuda ({beam_cuda.design_for(B, 5, 4)} design) x{B}", B,
              lambda: beam_cuda.beam_search_kernel_batch(xs_d, ln_d, thr, beam_size=5),
              iters, "reads/s", kernel=True)
         Bx = min(B, 256)

@@ -14,6 +14,11 @@ read T frames long):
      per read; ``"warp"``: one warp per read) at B in ``SWEEP_B``, with the
      faster of the two at each B: the times that set
      ``beam_cuda.THREAD_MIN_B``;
+  2b. the same sweep at the shapes in ``WIDE_SHAPES``, which run the wide
+     instance ``<16, 7>``: beam 16 at A+1 = 8 (its widest) and beam 8 at
+     A+1 = 5 (its narrowest labels), each batch from seed 42 as above: the
+     times behind ``beam_cuda.design_for``'s route of that instance, and
+     whether the crossover depends on K and A inside it;
   3. the warp design at 1, 2, 4 and 8 reads a block (B = 1024);
   4. the traceback kernel's two routes (``route="sweep"``: the log streamed
      backward through shared memory; ``"walk"``: one gather a node) on the
@@ -33,8 +38,8 @@ clock: a check of the tool, not a measurement of the kernels.
 
 Usage: ``python -m fast_ctc_decode_tpu_torch.tools.kernel_probe [B] [T] [iters] [--quick] [--device cpu]``
 (B: the stage split's batch, default 32768; ``--quick``: B=8, T=50, sweeps
-over B in (1, 8), the traceback's blocks at B=8 over two warps and two steps
-settings, one timed call per line).
+over B in (1, 8), the wide shapes included, the traceback's blocks at B=8
+over two warps and two steps settings, one timed call per line).
 """
 
 from __future__ import annotations
@@ -58,12 +63,16 @@ TRACEBACK_WARPS = (1, 2, 4, 8)
 TRACEBACK_STEPS = (2, 4, 6, 8, 12, 16, 32)
 TRACEBACK_CALLS = 10
 BEAM, THR, A1 = 5, 0.1, 5
+#: (beam, A+1) of the wide instance's design sweep: its widest shape, and a
+#: narrower one inside it
+WIDE_SHAPES = ((16, 8), (8, 5))
 
 
-def make_batch(B: int, T: int, device):
-    """The JAX probe's batch: seed 42, L2-normalised rows, full lengths."""
+def make_batch(B: int, T: int, device, a1: int = A1):
+    """The JAX probe's batch: seed 42, L2-normalised rows, full lengths.
+    The first b reads of a batch equal the batch of b reads."""
     rng = np.random.RandomState(42)
-    probs = rng.rand(B, T, A1).astype(np.float32)
+    probs = rng.rand(B, T, a1).astype(np.float32)
     probs /= np.linalg.norm(probs, ord=2, axis=-1, keepdims=True)
     lengths = torch.full((B,), T, dtype=torch.int32, device=device)
     return torch.from_numpy(probs).to(device), lengths
@@ -71,14 +80,16 @@ def make_batch(B: int, T: int, device):
 
 def run(B: int, T: int, *, device=None, iters: int = 5, sweep_b=SWEEP_B, rpb_b=RPB_B,
         tb_b=TRACEBACK_B, tb_block_b=TRACEBACK_BLOCK_B, tb_warps=TRACEBACK_WARPS,
-        tb_steps=TRACEBACK_STEPS):
-    """Time the stages at B, both designs at each of ``sweep_b``, the warp
-    design at each reads-per-block at ``rpb_b``, both traceback routes at
-    each of ``tb_b`` and the traceback's blocks (``tb_warps`` x ``tb_steps``)
-    at each of ``tb_block_b``.  Returns ``[(line, row)]``, ``row`` a dict with
-    ``what`` ("stage", "design", "faster", "reads_per_block", "traceback",
+        tb_steps=TRACEBACK_STEPS, wide_shapes=WIDE_SHAPES):
+    """Time the stages at B, both designs at each of ``sweep_b`` (beam 5,
+    then each (beam, A+1) of ``wide_shapes``), the warp design at each
+    reads-per-block at ``rpb_b``, both traceback routes at each of ``tb_b``
+    and the traceback's blocks (``tb_warps`` x ``tb_steps``) at each of
+    ``tb_block_b``.  Returns ``[(line, row)]``, ``row`` a dict with ``what``
+    ("stage", "design", "faster", "reads_per_block", "traceback",
     "traceback_faster", "traceback_block"), ``B``, ``ms``, ``reads_per_s``
-    and the row's own keys."""
+    and the row's own keys; "design" and "faster" rows carry ``beam`` and
+    ``A1``."""
     dev = resolve_device(device)
     timer = event_ms if dev.type == "cuda" else _host_ms
     clock = "CUDA events" if dev.type == "cuda" else "host clock, plain engine on the CPU"
@@ -97,7 +108,7 @@ def run(B: int, T: int, *, device=None, iters: int = 5, sweep_b=SWEEP_B, rpb_b=R
     probs, lengths = make_batch(B, T, dev)
     raw = beam_cuda.beam_search_kernel_batch(probs, lengths, THR, beam_size=BEAM, raw=True)
     ids_log, fin = raw["ids_log"], raw["fin"]
-    design = beam_cuda.design_for(B)
+    design = beam_cuda.design_for(B, BEAM, A1 - 1)
     emit("stage", B, lambda: beam_cuda.beam_search_kernel_batch(
         probs, lengths, THR, beam_size=BEAM, raw=True), f"beam kernel ({design})",
         stage="beam", design=design)
@@ -107,18 +118,25 @@ def run(B: int, T: int, *, device=None, iters: int = 5, sweep_b=SWEEP_B, rpb_b=R
         probs, lengths, THR, beam_size=BEAM), "whole (beam + traceback)", stage="whole")
     del probs, lengths, raw, ids_log, fin
 
-    for b in sweep_b:
-        probs, lengths = make_batch(b, T, dev)
-        ms = {
-            d: emit("design", b, lambda d=d: beam_cuda.beam_ids_kernel(
-                probs, lengths, THR, beam_size=BEAM, design=d), f"design {d}", design=d)
-            for d in beam_cuda.DESIGNS
-        }
-        best = min(ms, key=ms.get)
-        out.append((f"kernel probe B={b}: {best} is faster ({ms[best]!r} ms); "
-                    f"the wrapper routes B={b} to {beam_cuda.design_for(b)} "
-                    f"(THREAD_MIN_B = {beam_cuda.THREAD_MIN_B})",
-                    dict(what="faster", B=b, design=best, routed=beam_cuda.design_for(b))))
+    for K, a1 in ((BEAM, A1), *wide_shapes):
+        inst = beam_cuda.instance(K, a1 - 1)
+        shape = "" if (K, a1) == (BEAM, A1) else f"beam {K} A+1={a1} <{inst[0]}, {inst[1]}> "
+        probs_all, lengths_all = make_batch(max(sweep_b), T, dev, a1)
+        for b in sweep_b:
+            probs, lengths = probs_all[:b], lengths_all[:b]
+            ms = {
+                d: emit("design", b, lambda d=d: beam_cuda.beam_ids_kernel(
+                    probs, lengths, THR, beam_size=K, design=d), f"{shape}design {d}",
+                    design=d, beam=K, A1=a1)
+                for d in beam_cuda.DESIGNS
+            }
+            best = min(ms, key=ms.get)
+            routed = beam_cuda.design_for(b, K, a1 - 1)
+            out.append((f"kernel probe {shape}B={b}: {best} is faster ({ms[best]!r} ms); "
+                        f"the wrapper routes B={b} to {routed} "
+                        f"(THREAD_MIN_B = {beam_cuda.THREAD_MIN_B} at <5, 4>)",
+                        dict(what="faster", B=b, design=best, routed=routed, beam=K, A1=a1)))
+        del probs_all, lengths_all, probs, lengths
 
     probs, lengths = make_batch(rpb_b, T, dev)
     for r in READS_PER_BLOCK:

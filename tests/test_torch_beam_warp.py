@@ -45,8 +45,17 @@ def _source(name):
 
 def test_design_routing_threshold():
     t = beam_cuda.THREAD_MIN_B
-    assert [beam_cuda.design_for(b) for b in (0, 1, t - 1, t, 32768)] == [
-        "warp", "warp", "warp", "thread", "thread"]
+    # <5, 4>: routed by B alone, at its every (K, A)
+    for K, A in ((5, 4), (1, 1), (3, 4), (5, 2)):
+        assert beam_cuda.instance(K, A) == INSTANCES[0]
+        assert [beam_cuda.design_for(b, K, A) for b in (0, 1, t - 1, t, 32768)] == [
+            "warp", "warp", "warp", "thread", "thread"]
+    # <16, 7>: the warp design at every B (the probe's wide sweep)
+    for K, A in ((16, 7), (8, 4), (6, 4), (5, 5), (1, 7)):
+        assert beam_cuda.instance(K, A) == INSTANCES[1]
+        assert {beam_cuda.design_for(b, K, A) for b in (0, 1, t - 1, t, 32768, 2**31 - 1)} == {
+            "warp"}
+    assert beam_cuda.INSTANCES == INSTANCES
     assert beam_cuda.DESIGNS == ("thread", "warp")
 
 
@@ -152,10 +161,20 @@ def test_kernel_probe_quick_runs_on_the_cpu():
     rows = [r for _, r in kernel_probe.main(["--quick", "--device", "cpu"])]
     stages = [r["stage"] for r in rows if r["what"] == "stage"]
     assert stages == ["beam", "traceback", "whole"]
-    designs = [(r["B"], r["design"]) for r in rows if r["what"] == "design"]
-    assert designs == [(b, d) for b in (1, 8) for d in beam_cuda.DESIGNS]
+    # beam 5 at A+1 = 5, then the wide instance's two shapes, both designs at each B
+    shapes = [(5, 5), *kernel_probe.WIDE_SHAPES]
+    assert kernel_probe.WIDE_SHAPES == ((16, 8), (8, 5))
+    assert [beam_cuda.instance(K, a1 - 1) for K, a1 in shapes] == [
+        INSTANCES[0], INSTANCES[1], INSTANCES[1]]
+    designs = [(r["beam"], r["A1"], r["B"], r["design"]) for r in rows if r["what"] == "design"]
+    assert designs == [(K, a1, b, d) for K, a1 in shapes for b in (1, 8)
+                       for d in beam_cuda.DESIGNS]
     faster = [r for r in rows if r["what"] == "faster"]
-    assert [r["B"] for r in faster] == [1, 8] and all(r["routed"] == "warp" for r in faster)
+    assert [(r["beam"], r["A1"], r["B"]) for r in faster] == [
+        (K, a1, b) for K, a1 in shapes for b in (1, 8)]
+    assert all(r["routed"] == beam_cuda.design_for(r["B"], r["beam"], r["A1"] - 1)
+               for r in faster)
+    assert all(r["routed"] == "warp" for r in faster if r["beam"] == 5)
     assert [r["reads_per_block"] for r in rows if r["what"] == "reads_per_block"] == [1, 2, 4, 8]
     assert all(r["ms"] > 0 for r in rows if "ms" in r)
     lines = [line for line, r in kernel_probe.run(8, 20, device="cpu", iters=1, sweep_b=(2,),
