@@ -46,6 +46,7 @@ from ..ops import duplex_cuda
 from ..ops import duplex_exact_cuda
 from ..ops import duplex_fast as duplex_fast_ops
 from ..ops import viterbi as viterbi_ops
+from ..utils import profiling
 
 ENGINES = ("cuda", "fast", "exact")
 
@@ -63,25 +64,42 @@ def _resolve(engine: Optional[str], device: torch.device) -> str:
 def _decode_arrays(
     engine, device, probs, lengths, threshold, beam_size, collapse, max_nodes=None
 ):
-    """Move a batch to ``device`` and run ``engine`` on it: the raw dict."""
-    probs = torch.as_tensor(probs, dtype=torch.float32, device=device).contiguous()
-    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=device).contiguous()
+    """Move a batch to ``device`` and run ``engine`` on it: the raw dict,
+    without waiting for the device.  Stages ``beam.upload`` and
+    ``beam.launch``."""
+    with profiling.stage("beam.upload"):
+        probs = torch.as_tensor(probs, dtype=torch.float32, device=device).contiguous()
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=device).contiguous()
     kw = dict(beam_size=int(beam_size), collapse_repeats=bool(collapse))
     if engine == "exact":
         if max_nodes is None:
             max_nodes = beam_ops.default_max_nodes(probs.shape[1], beam_size, probs.shape[2] - 1)
+        kw["max_nodes"] = int(max_nodes)
         fn = (
             beam_exact_cuda.beam_search_exact_kernel_batch
             if device.type == "cuda"
             else beam_ops.beam_search_device_batch
         )
-        return fn(probs, lengths, np.float32(threshold), max_nodes=int(max_nodes), **kw)
-    fn = (
-        beam_cuda.beam_search_kernel_batch
-        if engine == "cuda"
-        else beam_fast_ops.beam_search_fast_batch
-    )
-    return fn(probs, lengths, np.float32(threshold), **kw)
+    else:
+        fn = (
+            beam_cuda.beam_search_kernel_batch
+            if engine == "cuda"
+            else beam_fast_ops.beam_search_fast_batch
+        )
+    with profiling.stage("beam.launch"):
+        return fn(probs, lengths, np.float32(threshold), **kw)
+
+
+def _fetch(out, path):
+    """A device decode's result dict brought home as numpy arrays: stage
+    ``<path>.wait`` holds the kernels' remaining time (a sync of the current
+    stream of each CUDA device holding a result, empty elsewhere),
+    ``<path>.fetch`` the copies."""
+    with profiling.stage(f"{path}.wait"):
+        for dev in {v.device for v in out.values() if v.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
+    with profiling.stage(f"{path}.fetch"):
+        return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def _assemble(out, alphabet) -> List[Tuple[str, List[int], int]]:
@@ -156,11 +174,8 @@ class BatchBeamDecoder:
         bad read cannot abort a batch.  String assembly uses the native C++
         detokenizer when available.  Per-stage wall times land in
         ``utils.profiling.METRICS``."""
-        from ..utils import profiling
-
-        B = int(probs.shape[0])
-        with profiling.stage("beam.device", reads=B):
-            out = {k: v.cpu().numpy() for k, v in self.decode_arrays(probs, lengths).items()}
+        with profiling.stage("beam.device"):
+            out = _fetch(self.decode_arrays(probs, lengths), "beam")
         with profiling.stage("beam.detok"):
             return _assemble(out, self.alphabet)
 
@@ -258,35 +273,32 @@ class BatchCrfBeamDecoder:
         """Device decode only: the fixed-width result dict (labels_rev,
         times_rev, count, err; int32 tensors on ``device``)."""
         dev = self.device
-        probs = torch.as_tensor(probs, dtype=torch.float32, device=dev).contiguous()
-        init = torch.as_tensor(init_states, dtype=torch.float32, device=dev).contiguous()
-        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev).contiguous()
+        with profiling.stage("crf.upload"):
+            probs = torch.as_tensor(probs, dtype=torch.float32, device=dev).contiguous()
+            init = torch.as_tensor(init_states, dtype=torch.float32, device=dev).contiguous()
+            lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev).contiguous()
+        kw = dict(beam_size=self.beam_size)
         if self.engine == "exact":
+            kw["max_nodes"] = self.max_nodes
             fn = (
                 beam_exact_cuda.crf_beam_search_exact_kernel_batch
                 if dev.type == "cuda"
                 else crf_ops.crf_beam_search_device_batch
             )
-            return fn(
-                probs, init, lengths, self.threshold, beam_size=self.beam_size,
-                max_nodes=self.max_nodes,
+        else:
+            fn = (
+                beam_cuda.crf_beam_search_kernel_batch
+                if self.engine == "cuda"
+                else beam_fast_ops.crf_beam_search_fast_batch
             )
-        fn = (
-            beam_cuda.crf_beam_search_kernel_batch
-            if self.engine == "cuda"
-            else beam_fast_ops.crf_beam_search_fast_batch
-        )
-        return fn(probs, init, lengths, self.threshold, beam_size=self.beam_size)
+        with profiling.stage("crf.launch"):
+            return fn(probs, init, lengths, self.threshold, **kw)
 
     def decode(self, probs, init_states, lengths) -> List[Tuple[str, List[int], int]]:
         """Returns [(sequence, path, err_code)] per read; per-stage wall
         times land in ``utils.profiling.METRICS``."""
-        from ..utils import profiling
-
-        B = int(probs.shape[0])
-        with profiling.stage("crf.device", reads=B):
-            out = self.decode_arrays(probs, init_states, lengths)
-            out = {k: v.cpu().numpy() for k, v in out.items()}
+        with profiling.stage("crf.device"):
+            out = _fetch(self.decode_arrays(probs, init_states, lengths), "crf")
         with profiling.stage("crf.detok"):
             return _assemble(out, self.alphabet)
 
@@ -337,6 +349,7 @@ def _auto_bucket_edges(lengths: Sequence[int], min_edge: int = 128) -> List[int]
     return edges
 
 
+@profiling.stage("decode_many")
 def decode_many(
     reads: Sequence[np.ndarray],
     alphabet,
@@ -366,7 +379,6 @@ def decode_many(
     "pallas" and "fast" resume under the port's "cuda" and "fast").  Results
     are returned in input order.
     """
-    from ..utils import profiling
     from ..utils.checkpoint import DecodeCheckpoint
     from ..utils.padding import bucket_reads
 
@@ -396,7 +408,8 @@ def decode_many(
             )
             return ckpt.results_in_order(len(reads))
 
-        buckets = bucket_reads(reads, edges)
+        with profiling.stage("decode_many.bucket"):
+            buckets = bucket_reads(reads, edges)
         A1 = reads[0].shape[1]
         bs = max(int(batch_size), 1)
         for edge, idxs in sorted(buckets.items()):
@@ -446,6 +459,7 @@ def decode_many(
         ckpt.close()
 
 
+@profiling.stage("decode_many_crf")
 def decode_many_crf(
     reads: Sequence,
     alphabet,
@@ -466,7 +480,6 @@ def decode_many_crf(
     its class (``utils.checkpoint.ENGINE_CLASSES["beam"]``: JAX's None for
     auto, "pallas" and "fast" under the port's "cuda" and "fast").
     Returns ``[(sequence, path, err_code)]`` in input order."""
-    from ..utils import profiling
     from ..utils.checkpoint import DecodeCheckpoint
 
     if not reads:
@@ -489,9 +502,10 @@ def decode_many_crf(
             return ckpt.results_in_order(len(reads))
 
         buckets: Dict[int, List[int]] = {}
-        for i, r in enumerate(reads):
-            e = next(e for e in edges if e >= r[0].shape[0])
-            buckets.setdefault(e, []).append(i)
+        with profiling.stage("decode_many_crf.bucket"):
+            for i, r in enumerate(reads):
+                e = next(e for e in edges if e >= r[0].shape[0])
+                buckets.setdefault(e, []).append(i)
 
         A1 = reads[0][0].shape[2]
         bs = max(int(batch_size), 1)
@@ -704,7 +718,10 @@ def exact_launch_pairs(batch: DuplexBatch, device, *, beam_size, crf, max_nodes=
 def run_duplex_engine(engine, batch: DuplexBatch, device, *, beam_size, collapse, crf,
                       max_nodes=None, budget_bytes=None):
     """Decode a prepared batch with ``engine`` on ``device``: the result dict
-    (labels_rev [B, T1], count [B], err [B]; int32 tensors on ``device``).
+    (labels_rev [B, T1], count [B], err [B]; int32 tensors on ``device``),
+    without waiting for the device.  Stages ``<path>.upload``,
+    ``<path>.launch`` and, on "exact", ``<path>.size``, where ``<path>`` is
+    "crf_duplex" with ``crf`` and "duplex" without.
 
       - "cuda": the slot kernel, then the 1D traceback kernel (plain only);
       - "fast": the plain slot engine;
@@ -716,41 +733,50 @@ def run_duplex_engine(engine, batch: DuplexBatch, device, *, beam_size, collapse
         package's budget, so a pair overflows (NODE_OVERFLOW) exactly where
         it does there."""
     K = int(beam_size)
+    path = "crf_duplex" if crf else "duplex"
     if engine != "exact":
-        l1, l2, rg, lo, hi, thr, init, ln = batch.tensors(device)
-        if engine == "cuda":
-            return duplex_cuda.duplex_kernel_batch(
-                l1, l2, rg, lo, hi, thr, ln, beam_size=K, collapse_repeats=collapse,
-                needs_ext=batch.needs_ext,
+        with profiling.stage(f"{path}.upload"):
+            l1, l2, rg, lo, hi, thr, init, ln = batch.tensors(device)
+        with profiling.stage(f"{path}.launch"):
+            if engine == "cuda":
+                return duplex_cuda.duplex_kernel_batch(
+                    l1, l2, rg, lo, hi, thr, ln, beam_size=K, collapse_repeats=collapse,
+                    needs_ext=batch.needs_ext,
+                )
+            return duplex_fast_ops.duplex_fast_batch(
+                l1, l2, rg, lo, hi, thr, init, ln, beam_size=K, collapse_repeats=collapse,
+                needs_ext=batch.needs_ext, crf=crf,
             )
-        return duplex_fast_ops.duplex_fast_batch(
-            l1, l2, rg, lo, hi, thr, init, ln, beam_size=K, collapse_repeats=collapse,
-            needs_ext=batch.needs_ext, crf=crf,
-        )
     dev = torch.device(device)
     N = batch.max_nodes(K) if max_nodes is None else int(max_nodes)
     B = batch.lo.shape[0]
-    chunk = exact_launch_pairs(batch, dev, beam_size=K, crf=crf, max_nodes=N,
-                               budget_bytes=budget_bytes)
+    with profiling.stage(f"{path}.size"):
+        chunk = exact_launch_pairs(batch, dev, beam_size=K, crf=crf, max_nodes=N,
+                                   budget_bytes=budget_bytes)
     fn = (
         duplex_exact_cuda.duplex_exact_kernel_batch
         if dev.type == "cuda"
         else duplex_ops.duplex_exact_batch
     )
-    outs = [
-        fn(*batch.tensors(dev, slice(s, s + chunk)), beam_size=K, collapse_repeats=collapse,
-           max_nodes=N, W=batch.W, needs_ext=batch.tree_needs_ext, crf=crf)
-        for s in range(0, max(B, 1), chunk)
-    ]
-    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    outs = []
+    for s in range(0, max(B, 1), chunk):
+        # past the first chunk, a pageable upload waits in stream order
+        # behind the previous chunk's kernel
+        with profiling.stage(f"{path}.upload"):
+            args = batch.tensors(dev, slice(s, s + chunk))
+        with profiling.stage(f"{path}.launch"):
+            outs.append(fn(*args, beam_size=K, collapse_repeats=collapse, max_nodes=N,
+                           W=batch.W, needs_ext=batch.tree_needs_ext, crf=crf))
+    with profiling.stage(f"{path}.launch"):
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
 def _assemble_duplex(out, B0, alphabet):
-    """Duplex result assembly: [(sequence, err_code)] per pair (duplex
-    returns no path, matching the reference — src/duplex.rs:638-649)."""
+    """Duplex result assembly (a result dict of host numpy arrays):
+    [(sequence, err_code)] per pair (duplex returns no path, matching the
+    reference — src/duplex.rs:638-649)."""
     from ..native import detokenize_batch
 
-    out = {k: v.cpu().numpy() for k, v in out.items()}
     counts = np.where(out["err"] == errors.OK, out["count"], 0).astype(np.int32)
     seqs = detokenize_batch(out["labels_rev"], counts, alphabet[1:], reverse=True)
     return [
@@ -814,17 +840,16 @@ class BatchDuplexDecoder:
         """net1 [B, T1, A+1], net2 [B, T2, A+1] linear probabilities (numpy
         or tensors).  Returns [(sequence, err_code)] per pair; a pair that
         fails keeps its status code and an empty sequence."""
-        from ..utils import profiling
-
-        with profiling.stage("duplex.device", reads=int(net1.shape[0])):
+        with profiling.stage("duplex.device"):
             out, B0 = self._decode(net1, net2, envelopes, lengths)
-            out = {k: v.cpu() for k, v in out.items()}
+            out = _fetch(out, "duplex")
         with profiling.stage("duplex.detok"):
             return _assemble_duplex(out, B0, self.alphabet)
 
     def _decode(self, net1, net2, envelopes, lengths):
-        batch = prep_duplex_batch(net1, net2, envelopes, lengths, self.threshold,
-                                  T1=self.T1, T2=self.T2)
+        with profiling.stage("duplex.prep"):
+            batch = prep_duplex_batch(net1, net2, envelopes, lengths, self.threshold,
+                                      T1=self.T1, T2=self.T2)
         engine = self.engine or auto_duplex_engine(batch.lo, batch.hi, self.device,
                                                    self.beam_size)
         out = run_duplex_engine(engine, batch, self.device, beam_size=self.beam_size,
@@ -880,17 +905,16 @@ class BatchCrfDuplexDecoder:
 
     def decode(self, net1, init1, net2, init2, envelopes=None, lengths=None):
         """Returns [(sequence, err_code)] per pair."""
-        from ..utils import profiling
-
-        with profiling.stage("crf_duplex.device", reads=int(net1.shape[0])):
+        with profiling.stage("crf_duplex.device"):
             out, B0 = self._decode(net1, init1, net2, init2, envelopes, lengths)
-            out = {k: v.cpu() for k, v in out.items()}
+            out = _fetch(out, "crf_duplex")
         with profiling.stage("crf_duplex.detok"):
             return _assemble_duplex(out, B0, self.alphabet)
 
     def _decode(self, net1, init1, net2, init2, envelopes, lengths):
-        batch = prep_duplex_batch(net1, net2, envelopes, lengths, self.threshold,
-                                  T1=self.T1, T2=self.T2, init1=init1, init2=init2)
+        with profiling.stage("crf_duplex.prep"):
+            batch = prep_duplex_batch(net1, net2, envelopes, lengths, self.threshold,
+                                      T1=self.T1, T2=self.T2, init1=init1, init2=init2)
         engine = self.engine or auto_duplex_engine(batch.lo, batch.hi, self.device,
                                                    self.beam_size, crf=True)
         out = run_duplex_engine(engine, batch, self.device, beam_size=self.beam_size,
@@ -906,6 +930,7 @@ def _constant_window(envelope) -> bool:
     return bool(np.all(env == env[:1]))
 
 
+@profiling.stage("decode_many_duplex")
 def decode_many_duplex(
     pairs: Sequence,
     alphabet,
@@ -933,7 +958,6 @@ def decode_many_duplex(
     "exact-pallas" as "exact"; the slot engines "pallas", "cuda" and "fast"
     as one another when every pair's window is constant).
     """
-    from ..utils import profiling
     from ..utils.checkpoint import DecodeCheckpoint
 
     if not pairs:
@@ -961,9 +985,10 @@ def decode_many_duplex(
             return [(s, e) for s, _, e in ckpt.results_in_order(len(pairs))]
 
         buckets: Dict[Tuple[int, int], List[int]] = {}
-        for i, p in enumerate(pairs):
-            key = (edge_for(p[0].shape[0], e1s), edge_for(p[1].shape[0], e2s))
-            buckets.setdefault(key, []).append(i)
+        with profiling.stage("decode_many_duplex.bucket"):
+            for i, p in enumerate(pairs):
+                key = (edge_for(p[0].shape[0], e1s), edge_for(p[1].shape[0], e2s))
+                buckets.setdefault(key, []).append(i)
 
         A1 = pairs[0][0].shape[1]
         bs = max(int(batch_size), 1)

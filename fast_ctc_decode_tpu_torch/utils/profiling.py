@@ -1,10 +1,30 @@
-"""Profiling helpers: wall-clock reads/s counters and torch.profiler traces.
+"""Profiling helpers: per-stage timers and torch.profiler traces.
 
 The reference has no observability at all; this is the framework-native
-replacement: per-stage timers and a trace context usable around any decode
-call.  The pipeline records the stages ``beam.device``, ``beam.detok``,
-``decode_many.pad`` and ``decode_many.checkpoint`` (the same names as
-``fast_ctc_decode_tpu.utils.profiling``).
+replacement: one span mechanism, ``stage(name)``, and a trace context usable
+around any decode call.  A stage adds its wall seconds to ``METRICS.stages``
+and, while a profiler records, marks the same interval as a
+``record_function`` range: on the clock the profiler gives the card's
+kernels and copies, nested as the stages nest.
+
+The pipeline (``parallel/pipeline.py``) names its stages by path (``beam``,
+``crf``, ``duplex``, ``crf_duplex``):
+
+- ``decode_many``, ``decode_many_crf``, ``decode_many_duplex``: the whole
+  call, with ``<call>.bucket`` (reads grouped by length), ``<call>.pad``
+  and ``<call>.checkpoint`` inside it;
+- ``<path>.device``: a batch's device decode, and inside it
+  ``<path>.upload`` (the copies to the card), ``<path>.launch`` (the kernel
+  wrappers' host side: checks, allocations, enqueue; the concatenation of
+  duplex chunks), ``<path>.wait`` (the kernels' remaining time: a stream
+  sync on a CUDA device, empty elsewhere) and ``<path>.fetch`` (the copies
+  home); the duplex paths add
+  ``<path>.prep`` (``prep_duplex_batch``) and, on the tree engine,
+  ``<path>.size`` (the launch sizing);
+- ``<path>.detok``: host assembly of the results.
+
+``beam.device``, ``beam.detok``, ``decode_many.pad`` and
+``decode_many.checkpoint`` are the JAX package's names too.
 """
 
 from __future__ import annotations
@@ -21,31 +41,7 @@ import torch
 
 @dataclass
 class Counters:
-    reads: int = 0
-    frames: int = 0
-    seconds: float = 0.0
-    stages: Dict[str, float] = field(default_factory=dict)
-
-    @property
-    def reads_per_sec(self) -> float:
-        return self.reads / self.seconds if self.seconds else 0.0
-
-    @property
-    def frames_per_sec(self) -> float:
-        return self.frames / self.seconds if self.seconds else 0.0
-
-
-@contextlib.contextmanager
-def timed(counters: Counters, stage: str, reads: int = 0, frames: int = 0):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        counters.seconds += dt
-        counters.reads += reads
-        counters.frames += frames
-        counters.stages[stage] = counters.stages.get(stage, 0.0) + dt
+    stages: Dict[str, float] = field(default_factory=dict)  # stage -> seconds
 
 
 @contextlib.contextmanager
@@ -98,8 +94,8 @@ def block(tree):
 
 log = logging.getLogger("fast_ctc_decode_tpu_torch")
 
-#: process-wide per-stage metrics, populated by the batch pipeline:
-#: stage -> seconds, plus read/error counters.  Reset with reset_metrics().
+#: process-wide per-stage seconds, populated by the batch pipeline.  Reset
+#: with reset_metrics().
 METRICS = Counters()
 
 
@@ -111,12 +107,18 @@ def reset_metrics() -> Counters:
 
 
 @contextlib.contextmanager
-def stage(name: str, reads: int = 0, frames: int = 0):
-    """Record a pipeline stage into the process-wide METRICS and emit a
-    DEBUG log line with the stage wall time."""
+def stage(name: str):
+    """Time a pipeline stage: its wall seconds add into ``METRICS.stages``
+    under ``name``.  While a torch.profiler records, the stage is also a
+    ``record_function`` range of that name; otherwise no range is opened
+    (entering one costs ~10 us even with no profiler, the check ~0.2 us).
+    Also a decorator: ``@stage("decode_many")``."""
+    counters = METRICS
+    span = (torch.profiler.record_function(name) if torch.autograd._profiler_enabled()
+            else contextlib.nullcontext())
     t0 = time.perf_counter()
-    with timed(METRICS, name, reads=reads, frames=frames):
-        yield
-    log.debug(
-        "stage %s: %.3fs (reads=%d)", name, time.perf_counter() - t0, reads
-    )
+    try:
+        with span:
+            yield
+    finally:
+        counters.stages[name] = counters.stages.get(name, 0.0) + time.perf_counter() - t0

@@ -200,7 +200,11 @@ def test_profiling_block_and_trace(tmp_path):
     assert profiling.block(x) is x  # CPU tensors: nothing to wait for
     with profiling.trace(str(tmp_path)):
         torch.ones(4).sum()
+        port.decode_many([rand_read(30, 5, 1)], "NACGT", batch_size=2, device="cpu")
     assert os.path.exists(tmp_path / "trace.json")
+    with open(tmp_path / "trace.json") as f:
+        names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
+    assert {"decode_many", "beam.device", "beam.upload"} <= names
 
 
 def test_port_imports_no_jax():
