@@ -528,36 +528,58 @@ class EnvPrep(NamedTuple):
     needs_ext: bool
 
 
+class EnvPrepBatch(NamedTuple):
+    lo: np.ndarray  # [B, T1] i32 clamped lower bounds
+    hi: np.ndarray  # [B, T1] i32 clamped upper bounds
+    W: np.ndarray  # [B] i64 tree engines' band width
+    Wr: np.ndarray  # [B] i64 root band width
+    needs_ext: np.ndarray  # [B] bool: the upper bound grows after step 0 (slot engines)
+    tree_needs_ext: np.ndarray  # [B] bool: the upper bound grows at all (tree engines)
+
+
+def prep_envelopes(envelopes: np.ndarray, T2: int) -> EnvPrepBatch:
+    """Clamp a batch of envelopes ``[B, T1, 2]`` and size each pair's bands,
+    as the JAX package's ``_prep_envelope_fast`` does pair by pair for the
+    fields the port reads.
+
+    Its host replay of the off/upper evolution (discard_until fires only when
+    the upper bound grows, duplex.rs:490-522) is a set of prefix maxima along
+    the frames: the upper bound before a step is the running maximum of hi
+    (from 0); the replay stops at the first step with hi <= lo or lo above
+    that bound; a step grows when hi exceeds it, and off is the running
+    maximum of lo - 1 over growing steps (from 0).  W is the widest
+    ``max(upper - off, hi - lo + 1)`` of the valid steps, at least 1; a
+    moving window with non-decreasing lower bounds takes max(hi - lo) + 2.
+    The slot engines size nothing from it; W is the tree engines' band
+    width."""
+    env = np.asarray(envelopes)
+    lo = np.maximum(env[..., 0], 0).astype(np.int32)
+    hi = np.minimum(env[..., 1], T2).astype(np.int32)
+    B, T1 = lo.shape
+    if T1 == 0:
+        return EnvPrepBatch(lo, hi, np.ones(B, np.int64), np.ones(B, np.int64),
+                            np.zeros(B, bool), np.zeros(B, bool))
+    l, h = lo.astype(np.int64), hi.astype(np.int64)
+    upper = np.maximum.accumulate(np.maximum(h, 0), axis=1)  # after each step
+    before = np.zeros_like(upper)
+    before[:, 1:] = upper[:, :-1]
+    valid = ~np.logical_or.accumulate((h <= l) | (l > before), axis=1)
+    grows = valid & (h > before)
+    off = np.maximum.accumulate(np.maximum(np.where(grows, l - 1, 0), 0), axis=1)
+    W = np.where(valid, np.maximum(upper - off, h - l + 1), 1).max(axis=1)
+    static_window = np.all(lo == 0, axis=1) & np.all(hi == T2, axis=1)
+    monotone = np.all(np.diff(lo, axis=1) >= 0, axis=1)
+    rel = monotone & ~static_window
+    W = np.where(rel, np.maximum((hi - lo).max(axis=1).astype(np.int64) + 2, 1), W)
+    Wr = np.minimum(np.maximum(env[:, 0, 1], 0), T2).astype(np.int64) + 1
+    return EnvPrepBatch(lo, hi, W, Wr, grows[:, 1:].any(axis=1),
+                        (hi[:, 1:] > hi[:, :-1]).any(axis=1))
+
+
 def _prep_envelope_fast(envelope: np.ndarray, T2: int) -> EnvPrep:
-    """Clamp the envelope and size the bands, as the JAX package's
-    ``_prep_envelope_fast`` does for the fields the port reads: the host
-    replays the off/upper evolution (discard_until fires only when the upper
-    bound grows, duplex.rs:490-522); a moving window with non-decreasing
-    lower bounds takes W = max(hi - lo) + 2.  The slot engines size nothing
-    from it; W is the tree engine's band width."""
-    lo = np.maximum(envelope[:, 0], 0).astype(np.int32)
-    hi = np.minimum(envelope[:, 1], T2).astype(np.int32)
-    T1 = len(lo)
-    static_window = bool(np.all(lo == 0) and np.all(hi == T2))
-    monotone = bool(np.all(np.diff(lo) >= 0)) if T1 > 1 else True
-    W = 1
-    off = 0
-    last_upper = 0
-    needs_ext = False
-    for t in range(T1):
-        l, h = int(lo[t]), int(hi[t])
-        if h <= l or l > last_upper:
-            break  # invalid envelope: the decode errors out at this step
-        if h > last_upper:
-            needs_ext = needs_ext or t > 0
-            if l > off:
-                off = l - 1
-        last_upper = max(last_upper, h)
-        W = max(W, last_upper - off, h - l + 1)
-    Wr = int(min(max(envelope[0, 1], 0), T2)) + 1 if T1 else 1
-    if monotone and not static_window:
-        W = max(int(max(hi - lo)) + 2, 1)
-    return EnvPrep(lo, hi, int(W), Wr, needs_ext)
+    """One envelope ``[T1, 2]`` through ``prep_envelopes``."""
+    p = prep_envelopes(np.asarray(envelope)[None], T2)
+    return EnvPrep(p.lo[0], p.hi[0], int(p.W[0]), int(p.Wr[0]), bool(p.needs_ext[0]))
 
 
 def log_inputs(net1, net2, threshold):

@@ -614,19 +614,12 @@ def prep_duplex_batch(net1, net2, envelopes, lengths, threshold, *, T1, T2, init
         envelopes = np.zeros((T1, 2), np.int64)
         envelopes[:, 1] = T2
     envelopes = host(envelopes).astype(np.int64)
-    if shared_env:
-        envelopes = np.broadcast_to(envelopes, (B, T1, 2))
     lengths = np.full((B,), T1, np.int32) if lengths is None else host(lengths).astype(np.int32)
     l1, l2, thr = duplex_fast_ops.log_inputs(net1, net2, threshold)
-    lo = np.zeros((B, T1), np.int32)
-    hi = np.zeros((B, T1), np.int32)
-    eps = [duplex_fast_ops._prep_envelope_fast(envelopes[b], T2)
-           for b in range(1 if shared_env else B)]
-    for b, ep in enumerate(eps):
-        lo[b], hi[b] = ep.lo, ep.hi
+    ep = duplex_fast_ops.prep_envelopes(envelopes[None] if shared_env else envelopes, T2)
+    lo, hi, wr_b = ep.lo, ep.hi, ep.Wr
     if shared_env:
-        lo[:], hi[:] = lo[0], hi[0]
-    wr_b = np.minimum(np.maximum(envelopes[:, 0, 1], 0), T2) + 1 if T1 else np.ones(B, np.int64)
+        lo, hi, wr_b = np.repeat(lo, B, 0), np.repeat(hi, B, 0), np.repeat(wr_b, B)
     Wr = int(max(wr_b.max(), 1)) if B else 1
     if init1 is None:
         root_gap = duplex_fast_ops.root_gap_host(l2, wr_b, Wr)
@@ -636,9 +629,9 @@ def prep_duplex_batch(net1, net2, envelopes, lengths, threshold, *, T1, T2, init
         init_states = np.argmax(host(init1).astype(np.float32), axis=1).astype(np.int32)
     return DuplexBatch(
         l1, l2, root_gap, lo, hi, thr, init_states, lengths,
-        needs_ext=any(ep.needs_ext for ep in eps),
-        W=max((ep.W for ep in eps), default=1),
-        tree_needs_ext=any(bool(np.any(ep.hi[1:] > ep.hi[:-1])) for ep in eps),
+        needs_ext=bool(ep.needs_ext.any()),
+        W=int(ep.W.max()) if ep.W.size else 1,
+        tree_needs_ext=bool(ep.tree_needs_ext.any()),
     )
 
 

@@ -27,10 +27,12 @@ from duplex_helpers import diag_env, random_data
 from fast_ctc_decode_tpu.ops import duplex as jax_dx
 from fast_ctc_decode_tpu.ops import duplex_fast as jax_df
 from fast_ctc_decode_tpu.ops import duplex_pallas as jax_dp
+from fast_ctc_decode_tpu.parallel import pipeline as jax_pipeline
 from fast_ctc_decode_tpu_torch import errors
 from fast_ctc_decode_tpu_torch.ops import beam_cuda, duplex_cuda
 from fast_ctc_decode_tpu_torch.ops import duplex as port_dx
 from fast_ctc_decode_tpu_torch.ops import duplex_fast as port_df
+from fast_ctc_decode_tpu_torch.parallel import pipeline as port_pipeline
 
 torch.set_num_threads(1)
 
@@ -153,6 +155,164 @@ def test_envelope_prep_equals_jax(name, env):
     got, want = port_dx._prep_envelope(env, T2), jax_dx._prep_envelope(env, T2)
     for g, w in zip(got, want[:5]):
         assert np.array_equal(g, w)
+
+
+# Seeded envelope makers (rng, t1, t2) -> [t1, 2] i64, t1 >= 2, for the batched
+# prep: each case puts the replay's stop, growth or clamping somewhere else.
+def _monotone(rng, t1, t2):
+    lo = np.cumsum(np.r_[0, rng.randint(0, 2, t1 - 1)])
+    return np.stack([lo, lo + rng.randint(2, 8, t1)], 1).astype(np.int64)
+
+
+def _nonmonotone(rng, t1, t2):
+    env = _monotone(rng, t1, t2)
+    for t in {rng.randint(2, t1) for _ in range(2)} if t1 > 2 else ():
+        env[t - 1, 0] += 1  # still valid; step t's lower bound falls back
+    return env
+
+
+def _static(rng, t1, t2):
+    env = full_env(t1, t2)
+    env[rng.randint(0, 2, t1) == 1, 1] += rng.randint(1, 4)  # past T2: still the full range
+    return env
+
+
+def _hi_le_lo_at(where):
+    def make(rng, t1, t2):
+        env = _monotone(rng, t1, t2)
+        t = {"first": 0, "middle": t1 // 2, "last": t1 - 1}[where]
+        env[t, 1] = env[t, 0] - rng.randint(0, 2)
+        return env
+    return make
+
+
+def _lo_above_upper(rng, t1, t2):
+    env = _monotone(rng, t1, t2)
+    m = t1 // 2
+    env[m, 0] = env[:m, 1].max() + rng.randint(1, 3)
+    env[m, 1] = env[m, 0] + 3
+    return env
+
+
+def _out_of_range(rng, t1, t2):
+    env = _monotone(rng, t1, t2)
+    env[:, 0] -= rng.randint(0, 6, t1)  # below 0
+    env[:, 1] += rng.randint(0, 12, t1)  # past T2
+    return env
+
+
+ENV_MAKERS = {
+    "monotone": _monotone,
+    "nonmonotone_lower": _nonmonotone,
+    "static": _static,
+    "hi_le_lo_first": _hi_le_lo_at("first"),
+    "hi_le_lo_middle": _hi_le_lo_at("middle"),
+    "hi_le_lo_last": _hi_le_lo_at("last"),
+    "lo_above_upper_middle": _lo_above_upper,
+    "out_of_range": _out_of_range,
+}
+
+
+def envelope_batch(case, seed, b=6):
+    """(envelopes [b, t1, 2] i64, T2) of one case: t1 of 2 to 40, or 1 or 0."""
+    rng = np.random.RandomState(seed)
+    t1 = {"one_step": 1, "empty": 0}.get(case, rng.randint(2, 41))
+    t2 = rng.randint(t1 + 1, t1 + 8)  # above every lower bound of _monotone
+    if case == "one_step":
+        envs = np.stack([rng.randint(-2, 3, (b, 1)), rng.randint(-2, t2 + 3, (b, 1))], 2)
+    elif case == "empty":
+        envs = np.zeros((b, 0, 2), np.int64)
+    elif case == "mixed":
+        makers = list(ENV_MAKERS.values())
+        envs = np.stack([makers[rng.randint(len(makers))](rng, t1, t2) for _ in range(b)])
+    else:
+        envs = np.stack([ENV_MAKERS[case](rng, t1, t2) for _ in range(b)])
+    return envs.astype(np.int64), t2
+
+
+@pytest.mark.parametrize("case", [*ENV_MAKERS, "one_step", "empty", "mixed"])
+def test_batched_envelope_prep_equals_jax(case):
+    # the batched prep and its one-envelope wrapper, field for field, against
+    # the JAX package's per-pair replay
+    for seed in range(5):
+        envs, t2 = envelope_batch(case, 100 * seed + len(case), b=6)
+        got = port_df.prep_envelopes(envs, t2)
+        assert got.lo.dtype == got.hi.dtype == np.int32
+        assert got.lo.shape == got.hi.shape == envs.shape[:2]
+        for b, env in enumerate(envs):
+            want = jax_df._prep_envelope_fast(env, t2)
+            row = port_df.EnvPrep(got.lo[b], got.hi[b], got.W[b], got.Wr[b], got.needs_ext[b])
+            for one in (row, port_df._prep_envelope_fast(env, t2)):
+                for f in port_df.EnvPrep._fields:
+                    assert np.array_equal(getattr(one, f), getattr(want, f)), (case, seed, b, f)
+            assert got.tree_needs_ext[b] == np.any(want.hi[1:] > want.hi[:-1])
+
+
+def _reference_batch(n1, n2, envs, lengths, thr, t1, t2, inits=None):
+    """DuplexBatch fields as the JAX pipeline's ``_prep_envelope_batch`` and
+    its decoders' host code (logs, root bands) give them."""
+    b = n1.shape[0]
+    shared = envs is None or envs.ndim == 2
+    envs = np.broadcast_to(full_env(t1, t2) if envs is None else envs, (b, t1, 2))
+    lo, hi, eps = jax_pipeline._prep_envelope_batch(jax_df, envs, b, t1, t2, shared)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        l1 = np.log(np.asarray(n1, np.float32), dtype=np.float32)
+        l2 = np.log(np.asarray(n2, np.float32), dtype=np.float32)
+        lt = np.float32(np.log(np.float32(thr)))
+    wr_b = np.minimum(np.maximum(envs[:, 0, 1], 0), t2) + 1
+    root_gap = np.full((b, int(wr_b.max())), -np.inf, np.float32)
+    root_gap[:, 0] = 0.0
+    if inits is None:
+        for i in range(b):
+            root_gap[i, 1:wr_b[i]] = np.cumsum(l2[i, : wr_b[i] - 1, 0], dtype=np.float32)
+        init_states = np.zeros(b, np.int32)
+    else:
+        S, A = l2.shape[2], l2.shape[3] - 1
+        states = np.argmax(inits[1], axis=1).astype(np.int64)
+        cur = np.zeros((b,), np.float32)
+        for i in range(root_gap.shape[1] - 1):
+            cur = (cur + l2[np.arange(b), i, states, 0]).astype(np.float32)
+            live = i + 1 < wr_b
+            root_gap[live, i + 1] = cur[live]
+            states = (states * A) % S
+        init_states = np.argmax(inits[0], axis=1).astype(np.int32)
+    return port_pipeline.DuplexBatch(
+        l1, l2, root_gap, lo, hi, lt, init_states, np.asarray(lengths, np.int32),
+        needs_ext=any(e.needs_ext for e in eps), W=max(e.W for e in eps),
+        tree_needs_ext=any(bool(np.any(e.hi[1:] > e.hi[:-1])) for e in eps),
+    )
+
+
+@pytest.mark.parametrize("crf", [False, True], ids=["plain", "crf"])
+@pytest.mark.parametrize("kind", ["per_pair", "shared", "none"])
+def test_prep_duplex_batch_equals_jax_assembly(kind, crf):
+    # a batch padded as decode_many_duplex pads one: read 1 zero past each
+    # pair's length, its envelope rows there repeating the last real row
+    t1, t2, b = 14, 16, 5
+    rng = np.random.RandomState(11 + 2 * crf + len(kind))
+    len1 = np.array([14, 9, 1, 5, 14], np.int32)
+    if crf:
+        n1, i1, n2, i2 = crf_pairs(12, 4, 5, b=b, t1=t1, t2=t2)
+        inits = (i1, i2)
+    else:
+        (n1, n2), inits = pairs(12, b=b, t1=t1, t2=t2), None
+    makers = list(ENV_MAKERS.values())
+    envs = {"none": None, "shared": _nonmonotone(rng, t1, t2)}.get(kind)
+    if kind == "per_pair":
+        envs = np.stack([makers[i % len(makers)](rng, t1, t2) for i in range(b)])
+    for i, n in enumerate(len1):
+        n1[i, n:] = 0.0
+        if kind == "per_pair":
+            envs[i, n:] = envs[i, n - 1]
+    kw = {} if inits is None else {"init1": inits[0], "init2": inits[1]}
+    got = port_pipeline.prep_duplex_batch(n1, n2, envs, len1, 0.05, T1=t1, T2=t2, **kw)
+    want = _reference_batch(n1, n2, envs, len1, 0.05, t1, t2, inits)
+    for f in port_pipeline.DuplexBatch._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert type(g) is type(w), f
+        if isinstance(g, np.ndarray):
+            assert g.dtype == w.dtype and g.shape == w.shape, f
+        assert np.array_equal(g, w), f
 
 
 @pytest.mark.parametrize("name,env", ENVS)
