@@ -35,7 +35,7 @@ import torch
 
 from .. import errors
 from ..alphabet import normalize_alphabet
-from ..device import resolve_device
+from ..device import resolve_device, with_index
 from ..ops import beam as beam_ops
 from ..ops import beam_cuda
 from ..ops import beam_exact_cuda
@@ -459,6 +459,60 @@ def decode_many(
         ckpt.close()
 
 
+def _on(x, device: torch.device) -> bool:
+    """Whether ``x`` is a tensor on ``device`` (an index-less ``cuda`` is the
+    current card)."""
+    return isinstance(x, torch.Tensor) and with_index(x.device) == with_index(device)
+
+
+#: the most elements one ``torch.cat`` writes in one batched kernel: PyTorch
+#: indexes a concatenation's output in 32 bits, and past that copies input by
+#: input
+_CAT_ELEMENTS = 2**31 - 1
+
+
+def _copy_rows(dst, srcs):
+    """Copy each of ``srcs`` into the leading entries of its row of ``dst``.
+    Runs of sources that fill their row whole (float32 tensors on ``dst``'s
+    device) are written by one ``torch.cat`` a run of at most
+    ``_CAT_ELEMENTS``, so a batch of whole chunks costs a few device
+    operations, not one a read; any other source gets a copy of its own."""
+    row = dst[0].numel()
+    group = max(1, _CAT_ELEMENTS // max(row, 1))
+    whole = [isinstance(x, torch.Tensor) and x.shape == dst.shape[1:]
+             and x.dtype == dst.dtype and x.device == dst.device for x in srcs]
+    j = 0
+    while j < len(srcs):
+        k = j
+        while k < len(srcs) and whole[k] and k - j < group:
+            k += 1
+        if k > j:
+            torch.cat(srcs[j:k], out=dst[j:k].view(-1, *dst.shape[2:]))
+            j = k
+        else:
+            x = torch.as_tensor(srcs[j])
+            dst[j, : x.shape[0]].copy_(x)
+            j += 1
+
+
+def _pad_crf_on(device, reads, chunk, bs: int, edge: int):
+    """The host pad of ``decode_many_crf`` made on ``device``, for reads whose
+    posteriors are tensors there: ``[bs, edge, S, A+1]`` float32 posteriors,
+    ``[bs, S]`` float32 init states and ``[bs]`` int32 lengths in torch
+    buffers on ``device`` (zeros past each read's end; padding rows of length
+    0 with init state ``e_0``), the same values as the host pad.  No
+    posterior goes through the host."""
+    S, A1 = reads[chunk[0]][0].shape[1:]
+    Ts = [int(reads[i][0].shape[0]) for i in chunk]
+    lengths = torch.tensor(Ts + [0] * (bs - len(chunk)), dtype=torch.int32, device=device)
+    probs = torch.zeros((bs, edge, S, A1), dtype=torch.float32, device=device)
+    inits = torch.zeros((bs, S), dtype=torch.float32, device=device)
+    inits[:, 0] = 1.0  # padding rows decode empty (length 0)
+    _copy_rows(probs, [reads[i][0] for i in chunk])
+    _copy_rows(inits, [reads[i][1] for i in chunk])
+    return probs, inits, lengths
+
+
 @profiling.stage("decode_many_crf")
 def decode_many_crf(
     reads: Sequence,
@@ -474,11 +528,18 @@ def decode_many_crf(
     """Checkpointable streaming CRF decode: ``decode_many`` for the CRF
     family.  ``reads`` entries are ``(posteriors [T, S, A+1], init_state
     [S])``; variable T rides power-of-two buckets (padded frames are masked
-    by per-read lengths, padding rows decode empty).  The checkpoint's
-    ``meta`` keys are the JAX package's, with the engine resolved for
-    ``device``; a JAX-written checkpoint resumes here under any engine of
-    its class (``utils.checkpoint.ENGINE_CLASSES["beam"]``: JAX's None for
-    auto, "pallas" and "fast" under the port's "cuda" and "fast").
+    by per-read lengths, padding rows decode empty).  A batch whose reads'
+    posteriors are all tensors on ``device`` (a network's output left where
+    it was written) is padded there, with no copy through the host; any
+    other batch is padded on the host and copied to ``device``.  Both give
+    the same results for the same values.  The counters
+    ``decode_many_crf.frames`` and ``decode_many_crf.moved_bytes``
+    (``utils.profiling``) add what each batch decodes and copies into its
+    buffers.  The checkpoint's ``meta`` keys are the JAX package's, with the
+    engine resolved for ``device``; a JAX-written checkpoint resumes here
+    under any engine of its class
+    (``utils.checkpoint.ENGINE_CLASSES["beam"]``: JAX's None for auto,
+    "pallas" and "fast" under the port's "cuda" and "fast").
     Returns ``[(sequence, path, err_code)]`` in input order."""
     from ..utils.checkpoint import DecodeCheckpoint
 
@@ -525,15 +586,22 @@ def decode_many_crf(
                 chunk = todo[s : s + bs]
                 n = len(chunk)
                 with profiling.stage("decode_many_crf.pad"):
-                    probs = np.zeros((bs, edge, S, A1), np.float32)
-                    inits = np.zeros((bs, S), np.float32)
-                    inits[:, 0] = 1.0  # padding rows decode empty (length 0)
-                    lengths = np.zeros((bs,), np.int32)
-                    for j, i in enumerate(chunk):
-                        p, st = reads[i][0], reads[i][1]
-                        probs[j, : p.shape[0]] = p
-                        inits[j] = st
-                        lengths[j] = p.shape[0]
+                    if all(_on(reads[i][0], dev) for i in chunk):
+                        probs, inits, lengths = _pad_crf_on(dev, reads, chunk, bs, edge)
+                    else:
+                        probs = np.zeros((bs, edge, S, A1), np.float32)
+                        inits = np.zeros((bs, S), np.float32)
+                        inits[:, 0] = 1.0  # padding rows decode empty (length 0)
+                        lengths = np.zeros((bs,), np.int32)
+                        for j, i in enumerate(chunk):
+                            p, st = reads[i][0], reads[i][1]
+                            probs[j, : p.shape[0]] = p
+                            inits[j] = st
+                            lengths[j] = p.shape[0]
+                    frames = sum(int(reads[i][0].shape[0]) for i in chunk)
+                    profiling.count("decode_many_crf.frames", frames)
+                    profiling.count("decode_many_crf.moved_bytes",
+                                    4 * (frames * S * A1 + n * S))
                 res = dec.decode(probs, inits, lengths)[:n]
                 with profiling.stage("decode_many_crf.checkpoint"):
                     ckpt.record(chunk, res)

@@ -1,11 +1,12 @@
-"""Profiling helpers: per-stage timers and torch.profiler traces.
+"""Profiling helpers: per-stage timers, counters and torch.profiler traces.
 
 The reference has no observability at all; this is the framework-native
-replacement: one span mechanism, ``stage(name)``, and a trace context usable
-around any decode call.  A stage adds its wall seconds to ``METRICS.stages``
-and, while a profiler records, marks the same interval as a
-``record_function`` range: on the clock the profiler gives the card's
-kernels and copies, nested as the stages nest.
+replacement: one span mechanism, ``stage(name)``, one counter mechanism,
+``count(name, n)``, and a trace context usable around any decode call.  A
+stage adds its wall seconds to ``METRICS.stages`` and, while a profiler
+records, marks the same interval as a ``record_function`` range: on the
+clock the profiler gives the card's kernels and copies, nested as the
+stages nest.
 
 The pipeline (``parallel/pipeline.py``) names its stages by path (``beam``,
 ``crf``, ``duplex``, ``crf_duplex``):
@@ -25,6 +26,13 @@ The pipeline (``parallel/pipeline.py``) names its stages by path (``beam``,
 
 ``beam.device``, ``beam.detok``, ``decode_many.pad`` and
 ``decode_many.checkpoint`` are the JAX package's names too.
+
+A counter adds a whole number to ``METRICS.counts`` under its name.
+``decode_many_crf`` counts ``decode_many_crf.frames`` (the real frames of
+the reads it decodes; padding and reads resumed from a checkpoint are not
+counted) and ``decode_many_crf.moved_bytes`` (the posterior and init-state
+bytes its pad stage writes into batch buffers, on the decode device or on
+the host; the zeros of padding are not counted).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 @dataclass
 class Counters:
     stages: Dict[str, float] = field(default_factory=dict)  # stage -> seconds
+    counts: Dict[str, int] = field(default_factory=dict)  # counter -> total
 
 
 @contextlib.contextmanager
@@ -94,8 +103,8 @@ def block(tree):
 
 log = logging.getLogger("fast_ctc_decode_tpu_torch")
 
-#: process-wide per-stage seconds, populated by the batch pipeline.  Reset
-#: with reset_metrics().
+#: process-wide per-stage seconds and counters, populated by the batch
+#: pipeline.  Reset with reset_metrics().
 METRICS = Counters()
 
 
@@ -122,3 +131,9 @@ def stage(name: str):
             yield
     finally:
         counters.stages[name] = counters.stages.get(name, 0.0) + time.perf_counter() - t0
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` of ``METRICS.counts``."""
+    counts = METRICS.counts
+    counts[name] = counts.get(name, 0) + int(n)

@@ -1,0 +1,175 @@
+"""``decode_many_crf`` on reads that are torch tensors on the decode device.
+
+A batch whose posteriors are tensors on ``device`` is padded there, in torch
+buffers, and decodes bit for bit as the same reads given as numpy arrays
+(padded on the host), on every engine of the CPU, with checkpoints resumed
+across the two forms.  The port's sequences, statuses and latest-entry
+paths meet the benchmark's frozen NumPy reference (``ctcbench/reference/
+crf.py``) at a sup-class CRF width (1,024 states), and sequences and
+statuses meet the repository's oracle.  The stream counts the frames it
+decodes and the bytes its pad stage writes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import oracle
+from ctcbench.reference.crf import crf_beam_search as ref_crf_beam_search
+from fast_ctc_decode_tpu_torch import decode_many_crf, errors
+from fast_ctc_decode_tpu_torch.parallel import pipeline
+from fast_ctc_decode_tpu_torch.utils import profiling
+
+torch.set_num_threads(1)
+
+ALPHA = "NACGT"
+
+
+def crf_reads(lengths, S, seed):
+    """Seeded reads ``(posteriors [T, S, 5], init [S])``, float32 numpy."""
+    rng = np.random.RandomState(seed)
+    reads = []
+    for T in lengths:
+        x = rng.rand(int(T), S, 5).astype(np.float32)
+        x /= x.sum(-1, keepdims=True)
+        init = rng.rand(S).astype(np.float32)
+        reads.append((x, init / init.sum()))
+    return reads
+
+
+def as_tensors(reads):
+    return [(torch.from_numpy(p.copy()), torch.from_numpy(i.copy())) for p, i in reads]
+
+
+LENGTHS = {"ragged": [7, 19, 3, 12, 16], "uniform": [14] * 5}
+
+#: (engine, S, lengths, batch size): every batch size leaves a partial batch
+CASES = [(e, S, kind, bs) for e in ("fast", "exact") for S in (4, 64, 1024)
+         for kind in LENGTHS for bs in (2, 3)]
+
+
+@pytest.mark.parametrize("engine, S, kind, bs", CASES)
+def test_tensors_on_the_device_decode_as_the_host_arrays(engine, S, kind, bs):
+    reads = crf_reads(LENGTHS[kind], S, seed=S + bs)
+    kw = dict(beam_size=5, beam_cut_threshold=0.0, batch_size=bs, engine=engine,
+              device="cpu")
+    want = decode_many_crf(reads, ALPHA, **kw)
+    got = decode_many_crf(as_tensors(reads), ALPHA, **kw)
+    assert got == want
+    assert all(r[2] == errors.OK for r in got)
+
+
+def test_tensor_batches_reach_the_decoder_as_torch_buffers(monkeypatch):
+    seen = []
+    real = pipeline.BatchCrfBeamDecoder.decode_arrays
+
+    def spy(self, probs, inits, lengths):
+        seen.append((type(probs), type(inits), tuple(probs.shape)))
+        return real(self, probs, inits, lengths)
+
+    monkeypatch.setattr(pipeline.BatchCrfBeamDecoder, "decode_arrays", spy)
+    reads = crf_reads([9, 9, 9], 16, seed=3)
+    decode_many_crf(as_tensors(reads), ALPHA, batch_size=2, device="cpu")
+    decode_many_crf(reads, ALPHA, batch_size=2, device="cpu")
+    assert seen == [(torch.Tensor, torch.Tensor, (2, 9, 16, 5))] * 2 + [
+        (np.ndarray, np.ndarray, (2, 9, 16, 5))] * 2
+
+
+def host_pad(reads, chunk, bs, edge):
+    """``decode_many_crf``'s host pad of ``chunk`` (its own lines)."""
+    S = reads[0][0].shape[1]
+    probs = np.zeros((bs, edge, S, 5), np.float32)
+    inits = np.zeros((bs, S), np.float32)
+    inits[:, 0] = 1.0
+    lengths = np.zeros((bs,), np.int32)
+    for j, i in enumerate(chunk):
+        probs[j, : reads[i][0].shape[0]] = reads[i][0]
+        inits[j] = reads[i][1]
+        lengths[j] = reads[i][0].shape[0]
+    return probs, inits, lengths
+
+
+@pytest.mark.parametrize("lengths, chunk, bs, group", [
+    ([5, 2], [1, 0], 3, None),              # ragged, a padding row
+    ([8, 8, 3, 8, 8, 8], [0, 1, 2, 3, 4, 5], 7, None),  # runs of whole reads around a short one
+    ([8, 8, 3, 8, 8, 8], [5, 4, 3, 1, 0, 2], 6, 2),     # runs cut at two reads a copy
+    ([8, 8, 8], [0, 1, 2], 3, 1),           # a copy a read
+])
+def test_the_device_pad_is_the_host_pad(monkeypatch, lengths, chunk, bs, group):
+    if group is not None:
+        monkeypatch.setattr(pipeline, "_CAT_ELEMENTS", group * 8 * 8 * 5)
+    reads = crf_reads(lengths, 8, seed=4)
+    probs, inits, lens = pipeline._pad_crf_on(torch.device("cpu"), as_tensors(reads), chunk,
+                                              bs, 8)
+    want = host_pad(reads, chunk, bs, 8)
+    assert np.array_equal(probs.numpy(), want[0]) and np.array_equal(inits.numpy(), want[1])
+    assert lens.dtype == torch.int32 and np.array_equal(lens.numpy(), want[2])
+    # host init states beside posteriors on the device: the same values
+    mixed = [(p, i.numpy()) for p, i in as_tensors(reads)]
+    assert np.array_equal(pipeline._pad_crf_on(torch.device("cpu"), mixed, chunk, bs, 8)[1],
+                          want[1])
+
+
+@pytest.mark.parametrize("first, then", [("numpy", "tensor"), ("tensor", "numpy")])
+@pytest.mark.parametrize("engine", ["fast", "exact"])
+def test_a_checkpoint_of_one_form_resumes_in_the_other(tmp_path, first, then, engine):
+    reads = crf_reads([6, 13, 4, 9, 11, 8, 5], 64, seed=8)  # the longest among the first 4
+    form = {"numpy": lambda r: r, "tensor": as_tensors}
+    kw = dict(beam_size=5, beam_cut_threshold=0.0, batch_size=2, engine=engine, device="cpu")
+    full = decode_many_crf(reads, ALPHA, **kw)
+    ckpt = str(tmp_path / f"{first}.jsonl")
+    assert decode_many_crf(form[first](reads[:4]), ALPHA, checkpoint_path=ckpt, **kw) == full[:4]
+    assert decode_many_crf(form[then](reads), ALPHA, checkpoint_path=ckpt, **kw) == full
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_sup_width_reads_meet_the_reference_and_the_oracle(seed):
+    rng = np.random.RandomState(seed)
+    reads = crf_reads(rng.randint(20, 61, size=3), 1024, seed)
+    got = decode_many_crf(as_tensors(reads), ALPHA, beam_size=5, beam_cut_threshold=0.0,
+                          device="cpu")
+    exact = decode_many_crf(as_tensors(reads), ALPHA, beam_size=5, beam_cut_threshold=0.0,
+                            engine="exact", device="cpu")
+    for (x, init), (seq, path, status), (xseq, xpath, xstatus) in zip(reads, got, exact):
+        want_seq, first, latest = ref_crf_beam_search(x, init, ALPHA, 5, 0.0)
+        assert (seq, path, status) == (want_seq, latest, errors.OK)
+        # the exact engine reports upstream's first-creation path
+        assert (xseq, xpath, xstatus) == (want_seq, first, errors.OK)
+        assert oracle.crf_beam_search(x, init, ALPHA, 5, 0.0) == (want_seq, first)
+
+
+@pytest.mark.parametrize("seed", [2**31 + 31, 2**33 + 7])
+def test_the_benchmark_law_meets_the_reference_on_latest_entry_paths(seed):
+    """Chunks of ``crf.stream``'s posterior law (a confident true state among
+    flat rows), where prefixes leave the beam and come back: the port's
+    paths are their latest entries, not upstream's first creations."""
+    from ctcbench.drivers.common import generator
+    from ctcbench.gen.crf import crf_chunks
+    from ctcbench.spec import load_files
+
+    config, _ = load_files("crf_sup_s1024_b5", "crf_chunks")
+    probs, init = crf_chunks(3, 80, 1024, config["posteriors"], generator(seed, "cpu"), "cpu")[:2]
+    got = decode_many_crf(list(zip(probs, init)), ALPHA, beam_size=5, beam_cut_threshold=0.0,
+                          device="cpu")
+    differ = 0
+    for x, i, (seq, path, status) in zip(probs.numpy(), init.numpy(), got):
+        want_seq, first, latest = ref_crf_beam_search(x, i, ALPHA, 5, 0.0)
+        assert (seq, path, status) == (want_seq, latest, errors.OK)
+        differ += first != latest
+    assert differ > 0
+
+
+@pytest.mark.parametrize("form", ["numpy", "tensor"])
+def test_counters_of_frames_and_moved_bytes(form):
+    S = 16
+    reads = crf_reads([7, 3, 12], S, seed=5)
+    if form == "tensor":
+        reads = as_tensors(reads)
+    counts = profiling.reset_metrics().counts
+    decode_many_crf(reads, ALPHA, batch_size=2, device="cpu")
+    assert counts == {"decode_many_crf.frames": 22,
+                      "decode_many_crf.moved_bytes": 4 * (22 * S * 5 + 3 * S)}
+    decode_many_crf(reads[:1], ALPHA, batch_size=2, device="cpu")
+    assert counts == {"decode_many_crf.frames": 29,
+                      "decode_many_crf.moved_bytes": 4 * (29 * S * 5 + 4 * S)}
+    assert profiling.reset_metrics().counts == {}

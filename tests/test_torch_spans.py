@@ -2,8 +2,9 @@
 
 Under a running ``torch.profiler`` every stage is a ``record_function``
 range of its name, inside its parent's range; ``METRICS.stages`` holds the
-same names; the children of a stage take no more time than it; and with no
-profiler recording, ``stage`` never enters ``record_function``.
+same names; the children of a stage take no more time than it; with no
+profiler recording, ``stage`` never enters ``record_function``; and the CRF
+stream's counters hold its frames and the bytes its pad stage writes.
 """
 
 import numpy as np
@@ -116,6 +117,19 @@ def test_children_take_no_more_than_their_parent(path):
     for parent in {p for p in tree.values() if p is not None}:
         kids = [n for n, p in tree.items() if p == parent]
         assert sum(stages[n] for n in kids) <= stages[parent], parent
+
+
+def test_crf_stream_counts_frames_and_moved_bytes():
+    counts = profiling.reset_metrics().counts
+    run_crf()
+    frames = 20 + 9 + 150
+    assert counts == {"decode_many_crf.frames": frames,
+                      "decode_many_crf.moved_bytes": 4 * (frames * 4 * 5 + 3 * 4)}
+    # only the CRF stream counts
+    for path in ("beam", "duplex", "crf_duplex"):
+        counts = profiling.reset_metrics().counts
+        PATHS[path][0]()
+        assert counts == {}
 
 
 class CountingRange:
