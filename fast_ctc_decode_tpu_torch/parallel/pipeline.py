@@ -495,13 +495,66 @@ def _copy_rows(dst, srcs):
             j += 1
 
 
+def _rows_of_one_tensor(xs, shape, device):
+    """``xs`` as one ``[len(xs), *shape]`` view of the tensor whose
+    consecutive rows they are, or None.  It is a view where every entry is a
+    contiguous float32 tensor on ``device`` of exactly ``shape``, all share
+    one storage, and entry j starts j rows after the first: the view's
+    elements are then the entries' own, in order.  (``data_ptr()`` stands in
+    for ``storage_offset()``: in one storage and dtype they step together,
+    and it is the cheaper call.)"""
+    first = xs[0]
+    if not _on(first, device) or first.numel() == 0:
+        return None
+    row = first.numel()
+    ptr, step = first.data_ptr(), row * first.element_size()
+    storage = first.untyped_storage().data_ptr()
+    for j, x in enumerate(xs):
+        if not (isinstance(x, torch.Tensor) and x.data_ptr() == ptr + j * step
+                and x.shape == shape and x.is_contiguous() and x.dtype is torch.float32
+                and x.untyped_storage().data_ptr() == storage):
+            return None
+    return torch.as_strided(first, (len(xs), *shape), (row, *first.stride()),
+                            first.storage_offset())
+
+
+def _crf_in_place(device, reads, chunk, edge: int):
+    """``decode_many_crf``'s batch of ``chunk`` read where it lies, or None:
+    where the reads' posteriors are consecutive whole rows of one tensor on
+    ``device`` (each ``[edge, S, A+1]``, as a network's output batch unbound
+    holds them), ``(probs [n, edge, S, A+1], inits [n, S], lengths [n],
+    written bytes)``.  ``probs`` is a view of the caller's tensor, the init
+    states one of theirs where they are consecutive rows too, else stacked
+    on ``device`` (the only bytes written), and every length is ``edge``.
+    The batch has no padding rows: each read decodes as in a padded batch."""
+    first = reads[chunk[0]][0]
+    if not isinstance(first, torch.Tensor) or first.dim() != 3:
+        return None
+    S, A1 = first.shape[1:]
+    probs = _rows_of_one_tensor([reads[i][0] for i in chunk], (edge, S, A1), device)
+    if probs is None:
+        return None
+    n = len(chunk)
+    inits = _rows_of_one_tensor([reads[i][1] for i in chunk], (S,), device)
+    written = 0
+    if inits is None:
+        rows = [torch.as_tensor(reads[i][1], dtype=torch.float32, device=device) for i in chunk]
+        if any(r.shape != (S,) for r in rows):
+            return None
+        inits = torch.stack(rows)
+        written = inits.numel() * inits.element_size()
+    lengths = torch.full((n,), edge, dtype=torch.int32, device=device)
+    return probs, inits, lengths, written
+
+
 def _pad_crf_on(device, reads, chunk, bs: int, edge: int):
     """The host pad of ``decode_many_crf`` made on ``device``, for reads whose
     posteriors are tensors there: ``[bs, edge, S, A+1]`` float32 posteriors,
     ``[bs, S]`` float32 init states and ``[bs]`` int32 lengths in torch
     buffers on ``device`` (zeros past each read's end; padding rows of length
     0 with init state ``e_0``), the same values as the host pad.  No
-    posterior goes through the host."""
+    posterior goes through the host.  A batch of consecutive whole rows of
+    one tensor never comes here: ``_crf_in_place`` decodes it in place."""
     S, A1 = reads[chunk[0]][0].shape[1:]
     Ts = [int(reads[i][0].shape[0]) for i in chunk]
     lengths = torch.tensor(Ts + [0] * (bs - len(chunk)), dtype=torch.int32, device=device)
@@ -529,13 +582,19 @@ def decode_many_crf(
     family.  ``reads`` entries are ``(posteriors [T, S, A+1], init_state
     [S])``; variable T rides power-of-two buckets (padded frames are masked
     by per-read lengths, padding rows decode empty).  A batch whose reads'
-    posteriors are all tensors on ``device`` (a network's output left where
-    it was written) is padded there, with no copy through the host; any
-    other batch is padded on the host and copied to ``device``.  Both give
+    posteriors are consecutive whole rows of one float32 tensor on
+    ``device``, each of its bucket's length (a network's output batch,
+    unbound in order), is decoded in place: the decoder reads the caller's
+    tensor through a view and nothing is copied (the init states are stacked
+    unless they are consecutive rows too); the caller's tensors are only
+    read.  Any other batch whose reads' posteriors are all tensors on
+    ``device`` is padded there, with no copy through the host; any other
+    batch is padded on the host and copied to ``device``.  All three give
     the same results for the same values.  The counters
-    ``decode_many_crf.frames`` and ``decode_many_crf.moved_bytes``
-    (``utils.profiling``) add what each batch decodes and copies into its
-    buffers.  The checkpoint's ``meta`` keys are the JAX package's, with the
+    ``decode_many_crf.frames``, ``decode_many_crf.moved_bytes`` and
+    ``decode_many_crf.in_place_frames`` (``utils.profiling``) add what each
+    batch decodes, what it copies into buffers, and what it decodes in
+    place.  The checkpoint's ``meta`` keys are the JAX package's, with the
     engine resolved for ``device``; a JAX-written checkpoint resumes here
     under any engine of its class
     (``utils.checkpoint.ENGINE_CLASSES["beam"]``: JAX's None for auto,
@@ -586,22 +645,28 @@ def decode_many_crf(
                 chunk = todo[s : s + bs]
                 n = len(chunk)
                 with profiling.stage("decode_many_crf.pad"):
-                    if all(_on(reads[i][0], dev) for i in chunk):
-                        probs, inits, lengths = _pad_crf_on(dev, reads, chunk, bs, edge)
+                    batch = _crf_in_place(dev, reads, chunk, edge)
+                    if batch is not None:
+                        probs, inits, lengths, moved = batch
+                        frames = n * edge
+                        profiling.count("decode_many_crf.in_place_frames", frames)
                     else:
-                        probs = np.zeros((bs, edge, S, A1), np.float32)
-                        inits = np.zeros((bs, S), np.float32)
-                        inits[:, 0] = 1.0  # padding rows decode empty (length 0)
-                        lengths = np.zeros((bs,), np.int32)
-                        for j, i in enumerate(chunk):
-                            p, st = reads[i][0], reads[i][1]
-                            probs[j, : p.shape[0]] = p
-                            inits[j] = st
-                            lengths[j] = p.shape[0]
-                    frames = sum(int(reads[i][0].shape[0]) for i in chunk)
+                        frames = sum(int(reads[i][0].shape[0]) for i in chunk)
+                        moved = 4 * (frames * S * A1 + n * S)
+                        if all(_on(reads[i][0], dev) for i in chunk):
+                            probs, inits, lengths = _pad_crf_on(dev, reads, chunk, bs, edge)
+                        else:
+                            probs = np.zeros((bs, edge, S, A1), np.float32)
+                            inits = np.zeros((bs, S), np.float32)
+                            inits[:, 0] = 1.0  # padding rows decode empty (length 0)
+                            lengths = np.zeros((bs,), np.int32)
+                            for j, i in enumerate(chunk):
+                                p, st = reads[i][0], reads[i][1]
+                                probs[j, : p.shape[0]] = p
+                                inits[j] = st
+                                lengths[j] = p.shape[0]
                     profiling.count("decode_many_crf.frames", frames)
-                    profiling.count("decode_many_crf.moved_bytes",
-                                    4 * (frames * S * A1 + n * S))
+                    profiling.count("decode_many_crf.moved_bytes", moved)
                 res = dec.decode(probs, inits, lengths)[:n]
                 with profiling.stage("decode_many_crf.checkpoint"):
                     ckpt.record(chunk, res)

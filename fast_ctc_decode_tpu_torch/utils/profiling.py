@@ -30,9 +30,12 @@ The pipeline (``parallel/pipeline.py``) names its stages by path (``beam``,
 A counter adds a whole number to ``METRICS.counts`` under its name.
 ``decode_many_crf`` counts ``decode_many_crf.frames`` (the real frames of
 the reads it decodes; padding and reads resumed from a checkpoint are not
-counted) and ``decode_many_crf.moved_bytes`` (the posterior and init-state
+counted), ``decode_many_crf.moved_bytes`` (the posterior and init-state
 bytes its pad stage writes into batch buffers, on the decode device or on
-the host; the zeros of padding are not counted).
+the host; the zeros of padding are not counted, and a batch decoded in
+place adds only its stacked init states, or 0) and
+``decode_many_crf.in_place_frames`` (the real frames of batches decoded in
+place, from the caller's tensor: counted only where that happens).
 """
 
 from __future__ import annotations

@@ -6,8 +6,11 @@ buffers, and decodes bit for bit as the same reads given as numpy arrays
 across the two forms.  The port's sequences, statuses and latest-entry
 paths meet the benchmark's frozen NumPy reference (``ctcbench/reference/
 crf.py``) at a sup-class CRF width (1,024 states), and sequences and
-statuses meet the repository's oracle.  The stream counts the frames it
-decodes and the bytes its pad stage writes.
+statuses meet the repository's oracle.  A batch of consecutive whole rows
+of one tensor is decoded in place, from the caller's memory, which it leaves
+unchanged, bit for bit as the padded path decodes the same reads; any other
+layout takes the pad.  The stream counts the frames it decodes, the bytes
+its pad stage writes and the frames it decodes in place.
 """
 
 import numpy as np
@@ -71,7 +74,9 @@ def test_tensor_batches_reach_the_decoder_as_torch_buffers(monkeypatch):
     reads = crf_reads([9, 9, 9], 16, seed=3)
     decode_many_crf(as_tensors(reads), ALPHA, batch_size=2, device="cpu")
     decode_many_crf(reads, ALPHA, batch_size=2, device="cpu")
-    assert seen == [(torch.Tensor, torch.Tensor, (2, 9, 16, 5))] * 2 + [
+    # the last batch of tensors, one whole read, is decoded in place: one row
+    assert seen == [(torch.Tensor, torch.Tensor, (2, 9, 16, 5)),
+                    (torch.Tensor, torch.Tensor, (1, 9, 16, 5))] + [
         (np.ndarray, np.ndarray, (2, 9, 16, 5))] * 2
 
 
@@ -159,17 +164,137 @@ def test_the_benchmark_law_meets_the_reference_on_latest_entry_paths(seed):
     assert differ > 0
 
 
-@pytest.mark.parametrize("form", ["numpy", "tensor"])
-def test_counters_of_frames_and_moved_bytes(form):
-    S = 16
-    reads = crf_reads([7, 3, 12], S, seed=5)
+def counted_forms(form, reads):
+    """``reads`` in ``form``: numpy arrays, separate tensors, or posteriors
+    as views of one tensor with the init states as views too, as separate
+    tensors or as numpy arrays."""
+    if form == "numpy":
+        return reads
     if form == "tensor":
-        reads = as_tensors(reads)
+        return as_tensors(reads)
+    probs = torch.from_numpy(np.stack([p for p, _ in reads])).unbind(0)
+    inits = {"views": lambda: torch.from_numpy(np.stack([i for _, i in reads])).unbind(0),
+             "views-own-inits": lambda: [torch.from_numpy(i.copy()) for _, i in reads],
+             "views-host-inits": lambda: [i for _, i in reads]}[form]()
+    return list(zip(probs, inits))
+
+
+#: form -> (read lengths, counts after decoding them, counts after decoding the
+#: first again), S = 16, batches of 2.  A batch whose posteriors are one
+#: tensor's consecutive whole rows (a single whole read among them) is decoded
+#: in place, and writes only init states that are not one tensor's rows.
+S16 = 16
+COUNTED = {
+    "numpy": ([7, 3, 12], (22, None, 4 * (22 * S16 * 5 + 3 * S16)),
+              (29, None, 4 * (29 * S16 * 5 + 4 * S16))),
+    "tensor": ([7, 3, 12], (22, 12, 4 * (10 * S16 * 5 + 2 * S16)),
+               (29, 19, 4 * (10 * S16 * 5 + 2 * S16))),
+    "views": ([11, 11, 11], (33, 33, 0), (44, 44, 0)),
+    "views-own-inits": ([11, 11, 11], (33, 33, 4 * 2 * S16), (44, 44, 4 * 2 * S16)),
+    "views-host-inits": ([11, 11, 11], (33, 33, 4 * 3 * S16), (44, 44, 4 * 4 * S16)),
+}
+
+
+def counted(frames, in_place, moved):
+    out = {"decode_many_crf.frames": frames, "decode_many_crf.moved_bytes": moved}
+    if in_place is not None:
+        out["decode_many_crf.in_place_frames"] = in_place
+    return out
+
+
+@pytest.mark.parametrize("form", COUNTED)
+def test_counters_of_frames_and_moved_bytes(form):
+    lengths, first, again = COUNTED[form]
+    reads = counted_forms(form, crf_reads(lengths, S16, seed=5))
     counts = profiling.reset_metrics().counts
     decode_many_crf(reads, ALPHA, batch_size=2, device="cpu")
-    assert counts == {"decode_many_crf.frames": 22,
-                      "decode_many_crf.moved_bytes": 4 * (22 * S * 5 + 3 * S)}
+    assert counts == counted(*first)
     decode_many_crf(reads[:1], ALPHA, batch_size=2, device="cpu")
-    assert counts == {"decode_many_crf.frames": 29,
-                      "decode_many_crf.moved_bytes": 4 * (29 * S * 5 + 4 * S)}
+    assert counts == counted(*again)
     assert profiling.reset_metrics().counts == {}
+
+
+def one_tensor(N, T, S, seed):
+    """``N`` reads of ``T`` frames as the rows of one ``[N, T, S, 5]`` tensor,
+    with init states as the rows of one ``[N, S]`` tensor."""
+    reads = crf_reads([T] * N, S, seed)
+    return (torch.from_numpy(np.stack([p for p, _ in reads])),
+            torch.from_numpy(np.stack([i for _, i in reads])))
+
+
+def clones(reads):
+    """The same reads as separate tensors: the pad path's input."""
+    return [(p.clone(), torch.as_tensor(i).clone()) for p, i in reads]
+
+
+#: (engine, S, batch size) over 5 reads: a full batch, and a full then a partial
+IN_PLACE = [(e, S, bs) for e in ("fast", "exact") for S in (4, 64, 1024) for bs in (5, 3)]
+
+
+@pytest.mark.parametrize("engine, S, bs", IN_PLACE)
+def test_rows_of_one_tensor_decode_in_place_as_the_pad(engine, S, bs):
+    base, init = one_tensor(5, 14, S, seed=S + bs)
+    kept = base.clone(), init.clone()
+    kw = dict(beam_size=5, beam_cut_threshold=0.0, batch_size=bs, engine=engine,
+              device="cpu")
+    counts = profiling.reset_metrics().counts
+    got = decode_many_crf(list(zip(base.unbind(0), init.unbind(0))), ALPHA, **kw)
+    assert counts["decode_many_crf.in_place_frames"] == 5 * 14
+    assert counts["decode_many_crf.moved_bytes"] == 0
+    want = decode_many_crf(clones(zip(base, init)), ALPHA, **kw)
+    assert "decode_many_crf.in_place_frames" not in profiling.reset_metrics().counts
+    assert got == want and all(r[2] == errors.OK for r in got)
+    # the caller's tensors are only read
+    assert torch.equal(base, kept[0]) and torch.equal(init, kept[1])
+
+
+def test_an_in_place_batch_reaches_the_decoder_as_the_callers_memory(monkeypatch):
+    seen = []
+    real = pipeline.BatchCrfBeamDecoder.decode_arrays
+
+    def spy(self, probs, inits, lengths):
+        seen.append((probs.data_ptr(), inits.data_ptr(), tuple(probs.shape),
+                     lengths.tolist()))
+        return real(self, probs, inits, lengths)
+
+    monkeypatch.setattr(pipeline.BatchCrfBeamDecoder, "decode_arrays", spy)
+    base, init = one_tensor(5, 9, 16, seed=3)
+    decode_many_crf(list(zip(base.unbind(0), init.unbind(0))), ALPHA, batch_size=3,
+                    device="cpu")
+    # a partial batch has no padding rows
+    assert seen == [(base[0].data_ptr(), init[0].data_ptr(), (3, 9, 16, 5), [9] * 3),
+                    (base[3].data_ptr(), init[3].data_ptr(), (2, 9, 16, 5), [9] * 2)]
+
+
+def ragged_rows(T, S):
+    """Reads of ``T[j]`` frames laid end to end in one storage."""
+    flat = torch.from_numpy(np.concatenate([p.reshape(-1) for p, _ in crf_reads(T, S, 9)]))
+    ends = np.cumsum([0] + [t * S * 5 for t in T])
+    return [flat[a:b].view(-1, S, 5) for a, b in zip(ends[:-1], ends[1:])]
+
+
+FALLBACKS = {
+    "reversed rows": lambda b, b2: b.unbind(0)[::-1],
+    "skipped rows": lambda b, b2: b.unbind(0)[::2],
+    "two tensors": lambda b, b2: b.unbind(0)[:2] + b2.unbind(0)[2:],
+    "non-contiguous": lambda b, b2: b.transpose(1, 2).contiguous().transpose(1, 2).unbind(0),
+    "shorter than its bucket": lambda b, b2: b.unbind(0)[:-1] + (b[-1, :-3],),
+    "ragged": lambda b, b2: ragged_rows([8, 10, 10, 7, 10, 10], 8),
+}
+
+
+@pytest.mark.parametrize("case", FALLBACKS)
+@pytest.mark.parametrize("engine", ["fast", "exact"])
+def test_any_other_layout_takes_the_pad(case, engine):
+    base, init = one_tensor(6, 10, 8, seed=11)
+    probs = FALLBACKS[case](base, base.clone())
+    reads = list(zip(probs, init.unbind(0)))
+    edge = max(int(p.shape[0]) for p in probs)
+    assert pipeline._crf_in_place(torch.device("cpu"), reads, list(range(len(reads))),
+                                  edge) is None
+    kw = dict(beam_size=5, beam_cut_threshold=0.0, batch_size=6, engine=engine,
+              device="cpu")
+    counts = profiling.reset_metrics().counts
+    got = decode_many_crf(reads, ALPHA, **kw)
+    assert "decode_many_crf.in_place_frames" not in counts
+    assert got == decode_many_crf(clones(reads), ALPHA, **kw)
