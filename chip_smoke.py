@@ -2345,6 +2345,9 @@ def main(argv=None):
     crf_shape = f"B={B_CRF} T={T_CRF} S={S_CRF}"
     ex_shape = f"B={B_EXACT} T={T_MAIN}"
     xc_shape = f"B={B_CRF_EXACT} T={T_CRF} S={S_CRF}"
+    # the plain versions get the budget the decoders' exact engine fills in
+    ex_nodes = beam_exact_cuda.beam_ops.default_max_nodes(T_MAIN, BEAM, len(ALPHABET) - 1)
+    xc_nodes = beam_exact_cuda.beam_ops.default_max_nodes(T_CRF, BEAM, len(ALPHABET) - 1)
     timed = [
         ("crf beam kernel", crf_shape, lambda: beam_cuda.crf_beam_ids_kernel(
             crf_probs_d, crf_init_d, crf_len_d, THR, beam_size=BEAM)),
@@ -2353,11 +2356,11 @@ def main(argv=None):
         ("exact kernel", ex_shape, lambda: beam_exact_cuda.beam_search_exact_kernel_batch(
             ex_probs_d, ex_len_d, THR, beam_size=BEAM)),
         ("plain exact", ex_shape, lambda: beam_exact_cuda.beam_search_exact_plain(
-            ex_probs_d, ex_len_d, THR, beam_size=BEAM, max_nodes=ex_dec.max_nodes)),
+            ex_probs_d, ex_len_d, THR, beam_size=BEAM, max_nodes=ex_nodes)),
         ("exact crf kernel", xc_shape, lambda: beam_exact_cuda.crf_beam_search_exact_kernel_batch(
             *xc_args, THR, beam_size=BEAM)),
         ("plain exact crf", xc_shape, lambda: beam_exact_cuda.crf_beam_search_exact_plain(
-            *xc_args, THR, beam_size=BEAM, max_nodes=xc_dec.max_nodes)),
+            *xc_args, THR, beam_size=BEAM, max_nodes=xc_nodes)),
     ]
     vl, vp, v_emit, vs = viterbi_ops.frame_runs(vit_probs_d, vit_len_d)
     vpath, vn = viterbi_ops.emit_path(v_emit, vs)

@@ -31,11 +31,8 @@ import torch
 from . import errors
 from .alphabet import normalize_alphabet
 from .device import resolve_device
-from .ops import beam as beam_ops
-from .ops import beam_cuda
-from .ops import beam_exact_cuda
-from .ops import beam_fast
 from .ops import crf as crf_ops
+from .ops import engines
 from .ops import viterbi as viterbi_ops
 from .parallel import pipeline
 
@@ -152,35 +149,20 @@ def beam_search(
         )
     _check_beam_args(alphabet, beam_size, beam_cut_threshold)
 
-    T, A1 = network_output.shape
-    if T == 0:
+    if network_output.shape[0] == 0:
         return "", []
     if engine is None:
         engine = "exact"
-    thr = np.float32(beam_cut_threshold)
-    kw = dict(beam_size=int(beam_size), collapse_repeats=bool(collapse_repeats))
-    if engine == "fast":
-        if max_nodes is not None:
-            raise ValueError("max_nodes requires engine='exact'")
-        dev, probs, lengths = _one_read(network_output, device)
-        fn = (
-            beam_cuda.beam_search_kernel_batch
-            if dev.type == "cuda"
-            else beam_fast.beam_search_fast_batch
-        )
-        out = fn(probs, lengths, thr, **kw)
-    elif engine == "exact":
-        if max_nodes is None:
-            max_nodes = beam_ops.default_max_nodes(T, beam_size, A1 - 1)
-        dev, probs, lengths = _one_read(network_output, device)
-        fn = (
-            beam_exact_cuda.beam_search_exact_kernel_batch
-            if dev.type == "cuda"
-            else beam_ops.beam_search_device_batch
-        )
-        out = fn(probs, lengths, thr, max_nodes=int(max_nodes), **kw)
-    else:
+    if engine not in ("fast", "exact"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine == "fast" and max_nodes is not None:
+        raise ValueError("max_nodes requires engine='exact'")
+    dev, probs, lengths = _one_read(network_output, device)
+    out = engines.beam_batch(
+        probs, lengths, np.float32(beam_cut_threshold), beam_size=beam_size,
+        tree=engine == "exact", kernel=dev.type == "cuda",
+        collapse_repeats=collapse_repeats, max_nodes=max_nodes,
+    )
     return _beam_result_to_seq_path(out, alphabet)
 
 
@@ -253,31 +235,15 @@ def crf_beam_search(
         # truncate(0) empties the beam immediately (src/search.rs:133-137)
         raise errors.SearchError(errors.RAN_OUT_OF_BEAM)
 
-    T = network_output.shape[0]
-    A = network_output.shape[2] - 1
-    thr = np.float32(beam_cut_threshold)
-    if engine == "fast":
-        dev, probs, lengths = _one_read(network_output, device)
-        init = torch.from_numpy(init_state).to(dev)[None]
-        fn = (
-            beam_cuda.crf_beam_search_kernel_batch
-            if dev.type == "cuda"
-            else beam_fast.crf_beam_search_fast_batch
-        )
-        out = fn(probs, init, lengths, thr, beam_size=int(beam_size))
-    elif engine == "exact":
-        if max_nodes is None:
-            max_nodes = beam_ops.default_max_nodes(T, beam_size, A)
-        dev, probs, lengths = _one_read(network_output, device)
-        init = torch.from_numpy(init_state).to(dev)[None]
-        fn = (
-            beam_exact_cuda.crf_beam_search_exact_kernel_batch
-            if dev.type == "cuda"
-            else crf_ops.crf_beam_search_device_batch
-        )
-        out = fn(probs, init, lengths, thr, beam_size=int(beam_size), max_nodes=int(max_nodes))
-    else:
+    if engine not in ("fast", "exact"):
         raise ValueError(f"unknown engine {engine!r}")
+    dev, probs, lengths = _one_read(network_output, device)
+    out = engines.beam_batch(
+        probs, lengths, np.float32(beam_cut_threshold), beam_size=beam_size,
+        tree=engine == "exact", kernel=dev.type == "cuda",
+        init_states=torch.from_numpy(init_state).to(dev)[None],
+        max_nodes=max_nodes,
+    )
     return _beam_result_to_seq_path(out, alphabet)
 
 

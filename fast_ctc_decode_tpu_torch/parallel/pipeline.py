@@ -36,17 +36,15 @@ import torch
 from .. import errors
 from ..alphabet import normalize_alphabet
 from ..device import resolve_device, with_index
-from ..ops import beam as beam_ops
-from ..ops import beam_cuda
-from ..ops import beam_exact_cuda
-from ..ops import beam_fast as beam_fast_ops
-from ..ops import crf as crf_ops
 from ..ops import duplex as duplex_ops
 from ..ops import duplex_cuda
 from ..ops import duplex_exact_cuda
 from ..ops import duplex_fast as duplex_fast_ops
+from ..ops import engines
 from ..ops import viterbi as viterbi_ops
 from ..utils import profiling
+from ..utils.checkpoint import DecodeCheckpoint
+from ..utils.padding import edge_holding, pad_batch
 
 ENGINES = ("cuda", "fast", "exact")
 
@@ -61,33 +59,28 @@ def _resolve(engine: Optional[str], device: torch.device) -> str:
     return engine
 
 
-def _decode_arrays(
-    engine, device, probs, lengths, threshold, beam_size, collapse, max_nodes=None
-):
-    """Move a batch to ``device`` and run ``engine`` on it: the raw dict,
-    without waiting for the device.  Stages ``beam.upload`` and
-    ``beam.launch``."""
-    with profiling.stage("beam.upload"):
+def _decode_arrays(engine, device, probs, lengths, threshold, beam_size, *, collapse=True,
+                   max_nodes=None, init_states=None):
+    """Move a batch to ``device`` and run ``engine`` on it (the CRF engine
+    with ``init_states``): the raw dict, without waiting for the device.
+    Stages ``<path>.upload`` and ``<path>.launch``, ``<path>`` "crf" with
+    init states and "beam" without.  "cuda" is the hash kernel, "fast" the
+    plain hash engine on every device, "exact" the tree kernel on a CUDA
+    device and the plain tree engine elsewhere (``ops/engines.py``)."""
+    path = "beam" if init_states is None else "crf"
+    with profiling.stage(f"{path}.upload"):
         probs = torch.as_tensor(probs, dtype=torch.float32, device=device).contiguous()
+        if init_states is not None:
+            init_states = torch.as_tensor(init_states, dtype=torch.float32,
+                                          device=device).contiguous()
         lengths = torch.as_tensor(lengths, dtype=torch.int32, device=device).contiguous()
-    kw = dict(beam_size=int(beam_size), collapse_repeats=bool(collapse))
-    if engine == "exact":
-        if max_nodes is None:
-            max_nodes = beam_ops.default_max_nodes(probs.shape[1], beam_size, probs.shape[2] - 1)
-        kw["max_nodes"] = int(max_nodes)
-        fn = (
-            beam_exact_cuda.beam_search_exact_kernel_batch
-            if device.type == "cuda"
-            else beam_ops.beam_search_device_batch
+    tree = engine == "exact"
+    with profiling.stage(f"{path}.launch"):
+        return engines.beam_batch(
+            probs, lengths, np.float32(threshold), beam_size=beam_size, tree=tree,
+            kernel=(device.type == "cuda") if tree else (engine == "cuda"),
+            init_states=init_states, collapse_repeats=collapse, max_nodes=max_nodes,
         )
-    else:
-        fn = (
-            beam_cuda.beam_search_kernel_batch
-            if engine == "cuda"
-            else beam_fast_ops.beam_search_fast_batch
-        )
-    with profiling.stage("beam.launch"):
-        return fn(probs, lengths, np.float32(threshold), **kw)
 
 
 def _fetch(out, path):
@@ -130,8 +123,9 @@ class BatchBeamDecoder:
     "cuda", "fast", "exact" or None.  All are sequence-exact against the
     reference; with "cuda"/"fast", ``path`` entries of pruned-and-re-derived
     prefixes report their latest creation time, "exact" their first.
-    ``max_nodes`` is the exact engine's per-read tree budget (default: the
-    worst case for T); the other engines ignore it, as in the JAX package.
+    ``max_nodes`` is the exact engine's per-read tree budget (None, the
+    default: the worst case for each batch's T, ``beam.default_max_nodes``);
+    the other engines ignore it, as in the JAX package.
     """
 
     def __init__(
@@ -152,21 +146,13 @@ class BatchBeamDecoder:
         self.collapse = bool(collapse_repeats)
         self.device = resolve_device(device)
         self.engine = _resolve(engine, self.device)
-        self.max_nodes = None
-        if self.engine == "exact":
-            self.max_nodes = int(
-                max_nodes
-                if max_nodes is not None
-                else beam_ops.default_max_nodes(self.T, self.beam_size, len(self.alphabet) - 1)
-            )
+        self.max_nodes = None if max_nodes is None else int(max_nodes)
 
     def decode_arrays(self, probs, lengths):
         """Device decode only: the fixed-width result dict (labels_rev,
         times_rev, count, err; int32 tensors on ``device``)."""
-        return _decode_arrays(
-            self.engine, self.device, probs, lengths, self.threshold,
-            self.beam_size, self.collapse, self.max_nodes,
-        )
+        return _decode_arrays(self.engine, self.device, probs, lengths, self.threshold,
+                              self.beam_size, collapse=self.collapse, max_nodes=self.max_nodes)
 
     def decode(self, probs, lengths) -> List[Tuple[str, List[int], int]]:
         """Full decode: returns [(sequence, path, err_code)] per read.
@@ -263,36 +249,12 @@ class BatchCrfBeamDecoder:
         self.threshold = np.float32(beam_cut_threshold)
         self.device = resolve_device(device)
         self.engine = _resolve(engine, self.device)
-        self.max_nodes = None
-        if self.engine == "exact":
-            self.max_nodes = beam_ops.default_max_nodes(
-                self.T, self.beam_size, len(self.alphabet) - 1
-            )
 
     def decode_arrays(self, probs, init_states, lengths):
         """Device decode only: the fixed-width result dict (labels_rev,
         times_rev, count, err; int32 tensors on ``device``)."""
-        dev = self.device
-        with profiling.stage("crf.upload"):
-            probs = torch.as_tensor(probs, dtype=torch.float32, device=dev).contiguous()
-            init = torch.as_tensor(init_states, dtype=torch.float32, device=dev).contiguous()
-            lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev).contiguous()
-        kw = dict(beam_size=self.beam_size)
-        if self.engine == "exact":
-            kw["max_nodes"] = self.max_nodes
-            fn = (
-                beam_exact_cuda.crf_beam_search_exact_kernel_batch
-                if dev.type == "cuda"
-                else crf_ops.crf_beam_search_device_batch
-            )
-        else:
-            fn = (
-                beam_cuda.crf_beam_search_kernel_batch
-                if self.engine == "cuda"
-                else beam_fast_ops.crf_beam_search_fast_batch
-            )
-        with profiling.stage("crf.launch"):
-            return fn(probs, init, lengths, self.threshold, **kw)
+        return _decode_arrays(self.engine, self.device, probs, lengths, self.threshold,
+                              self.beam_size, init_states=init_states)
 
     def decode(self, probs, init_states, lengths) -> List[Tuple[str, List[int], int]]:
         """Returns [(sequence, path, err_code)] per read; per-stage wall
@@ -314,10 +276,8 @@ def decode_and_count(
     over every process with ``all_reduce``, as the JAX package's ``psum``
     over its data axis: all processes agree on the global counters."""
     dev = resolve_device(device)
-    out = _decode_arrays(
-        _resolve(engine, dev), dev, probs, lengths, threshold, beam_size,
-        collapse,
-    )
+    out = _decode_arrays(_resolve(engine, dev), dev, probs, lengths, threshold, beam_size,
+                         collapse=collapse)
     ok = (out["err"] == errors.OK).sum(dtype=torch.int32)
     bad = (out["err"] != errors.OK).sum(dtype=torch.int32)
     totals = torch.stack([ok, bad])
@@ -347,6 +307,57 @@ def _auto_bucket_edges(lengths: Sequence[int], min_edge: int = 128) -> List[int]
         e *= 2
     edges.append(mx)
     return edges
+
+
+def _stream(call, items, batch_size, checkpoint_path, meta, kind, *, key, decoder, pad,
+            noun="reads", to_rows=None):
+    """The per-batch loop of the ``decode_many*`` streams: ``items``' rows
+    ``(sequence, path, err_code)`` in input order, with those the JSONL
+    checkpoint at ``checkpoint_path`` (``meta``, ``kind``) already holds
+    decoded no more.  Items are grouped by ``key(i)`` (stage
+    ``<call>.bucket``), each group decoded in sorted key order by one
+    ``decoder(key)``, ``batch_size`` items at a time: ``pad(key, chunk,
+    batch_size)`` makes the decoder's arguments (stage ``<call>.pad``), the
+    decoder's rows (through ``to_rows`` where given) go to the checkpoint
+    (stage ``<call>.checkpoint``)."""
+    bs = max(int(batch_size), 1)
+    ckpt = DecodeCheckpoint.load_or_create(checkpoint_path, meta, kind=kind)
+    try:
+        if ckpt.cursor >= len(items):
+            profiling.log.info("%s: all %d %s already in checkpoint", call, len(items), noun)
+            return ckpt.results_in_order(len(items))
+
+        buckets: Dict = {}
+        with profiling.stage(f"{call}.bucket"):
+            for i in range(len(items)):
+                buckets.setdefault(key(i), []).append(i)
+        for k, idxs in sorted(buckets.items()):
+            todo = [i for i in idxs if i not in ckpt.done]
+            if not todo:
+                continue
+            dec = decoder(k)
+            where = "T1<=%d T2<=%d" % k if isinstance(k, tuple) else f"T<={k}"
+            profiling.log.info("%s: bucket %s, %d %s, batch=%d", call, where, len(todo), noun, bs)
+            for s in range(0, len(todo), bs):
+                chunk = todo[s : s + bs]
+                with profiling.stage(f"{call}.pad"):
+                    args = pad(k, chunk, bs)
+                res = dec.decode(*args)[: len(chunk)]
+                with profiling.stage(f"{call}.checkpoint"):
+                    rows = res if to_rows is None else to_rows(res)
+                    ckpt.record(chunk, rows)
+                bad = sum(1 for r in rows if r[2] != errors.OK)
+                if bad:
+                    profiling.log.warning(
+                        "%s: %d/%d %s errored in batch", call, bad, len(chunk), noun
+                    )
+        profiling.log.info(
+            "%s: %d %s done; stage seconds: %s", call, len(items), noun,
+            {k: round(v, 3) for k, v in profiling.METRICS.stages.items()},
+        )
+        return ckpt.results_in_order(len(items))
+    finally:
+        ckpt.close()
 
 
 @profiling.stage("decode_many")
@@ -379,9 +390,6 @@ def decode_many(
     "pallas" and "fast" resume under the port's "cuda" and "fast").  Results
     are returned in input order.
     """
-    from ..utils.checkpoint import DecodeCheckpoint
-    from ..utils.padding import bucket_reads
-
     if not reads:
         return []
     dev = resolve_device(device)
@@ -399,64 +407,28 @@ def decode_many(
         "collapse_repeats": bool(collapse_repeats),
         "engine": engine,
     }
+    A1 = reads[0].shape[1]
 
-    ckpt = DecodeCheckpoint.load_or_create(checkpoint_path, meta, kind="beam")
-    try:
-        if ckpt.cursor >= len(reads):
-            profiling.log.info(
-                "decode_many: all %d reads already in checkpoint", len(reads)
-            )
-            return ckpt.results_in_order(len(reads))
+    def pad(edge, chunk, bs):
+        # partial batches ride length-0 padding rows (decoded as empty in
+        # O(1) work), never duplicate decodes
+        probs = np.zeros((bs, edge, A1), np.float32)
+        lengths = np.zeros((bs,), np.int32)
+        for j, i in enumerate(chunk):
+            r = reads[i]
+            probs[j, : r.shape[0]] = r
+            lengths[j] = r.shape[0]
+        return probs, lengths
 
-        with profiling.stage("decode_many.bucket"):
-            buckets = bucket_reads(reads, edges)
-        A1 = reads[0].shape[1]
-        bs = max(int(batch_size), 1)
-        for edge, idxs in sorted(buckets.items()):
-            todo = [i for i in idxs if i not in ckpt.done]
-            if not todo:
-                continue
-            dec = BatchBeamDecoder(
-                alphabet,
-                T=edge,
-                beam_size=beam_size,
-                beam_cut_threshold=beam_cut_threshold,
-                collapse_repeats=collapse_repeats,
-                engine=engine,
-                device=dev,
-            )
-            profiling.log.info(
-                "decode_many: bucket T<=%d, %d reads, batch=%d", edge,
-                len(todo), bs,
-            )
-            for s in range(0, len(todo), bs):
-                chunk = todo[s : s + bs]
-                n = len(chunk)
-                # partial batches ride length-0 padding rows (decoded as
-                # empty in O(1) work), never duplicate decodes
-                with profiling.stage("decode_many.pad"):
-                    probs = np.zeros((bs, edge, A1), np.float32)
-                    lengths = np.zeros((bs,), np.int32)
-                    for j, i in enumerate(chunk):
-                        r = reads[i]
-                        probs[j, : r.shape[0]] = r
-                        lengths[j] = r.shape[0]
-                res = dec.decode(probs, lengths)[:n]
-                with profiling.stage("decode_many.checkpoint"):
-                    ckpt.record(chunk, res)
-                bad = sum(1 for r in res if r[2] != errors.OK)
-                if bad:
-                    profiling.log.warning(
-                        "decode_many: %d/%d reads errored in batch", bad, n
-                    )
-        profiling.log.info(
-            "decode_many: %d reads done; stage seconds: %s",
-            len(reads),
-            {k: round(v, 3) for k, v in profiling.METRICS.stages.items()},
-        )
-        return ckpt.results_in_order(len(reads))
-    finally:
-        ckpt.close()
+    return _stream(
+        "decode_many", reads, batch_size, checkpoint_path, meta, "beam",
+        key=lambda i: edge_holding(reads[i].shape[0], edges),
+        decoder=lambda edge: BatchBeamDecoder(
+            alphabet, T=edge, beam_size=beam_size, beam_cut_threshold=beam_cut_threshold,
+            collapse_repeats=collapse_repeats, engine=engine, device=dev,
+        ),
+        pad=pad,
+    )
 
 
 def _on(x, device: torch.device) -> bool:
@@ -547,19 +519,21 @@ def _crf_in_place(device, reads, chunk, edge: int):
     return probs, inits, lengths, written
 
 
-def _pad_crf_on(device, reads, chunk, bs: int, edge: int):
-    """The host pad of ``decode_many_crf`` made on ``device``, for reads whose
-    posteriors are tensors there: ``[bs, edge, S, A+1]`` float32 posteriors,
-    ``[bs, S]`` float32 init states and ``[bs]`` int32 lengths in torch
-    buffers on ``device`` (zeros past each read's end; padding rows of length
-    0 with init state ``e_0``), the same values as the host pad.  No
-    posterior goes through the host.  A batch of consecutive whole rows of
-    one tensor never comes here: ``_crf_in_place`` decodes it in place."""
+def _pad_crf(device, reads, chunk, bs: int, edge: int):
+    """``decode_many_crf``'s pad of ``chunk``: ``[bs, edge, S, A+1]`` float32
+    posteriors, ``[bs, S]`` float32 init states and ``[bs]`` int32 lengths in
+    torch buffers (zeros past each read's end; padding rows of length 0 with
+    init state ``e_0``).  The buffers lie where the reads lie: on ``device``
+    when every posterior of the batch is a tensor there, so that none goes
+    through the host, else on the host, for the decoder to upload.  A batch
+    of consecutive whole rows of one tensor never comes here:
+    ``_crf_in_place`` decodes it in place."""
+    on = device if all(_on(reads[i][0], device) for i in chunk) else torch.device("cpu")
     S, A1 = reads[chunk[0]][0].shape[1:]
     Ts = [int(reads[i][0].shape[0]) for i in chunk]
-    lengths = torch.tensor(Ts + [0] * (bs - len(chunk)), dtype=torch.int32, device=device)
-    probs = torch.zeros((bs, edge, S, A1), dtype=torch.float32, device=device)
-    inits = torch.zeros((bs, S), dtype=torch.float32, device=device)
+    lengths = torch.tensor(Ts + [0] * (bs - len(chunk)), dtype=torch.int32, device=on)
+    probs = torch.zeros((bs, edge, S, A1), dtype=torch.float32, device=on)
+    inits = torch.zeros((bs, S), dtype=torch.float32, device=on)
     inits[:, 0] = 1.0  # padding rows decode empty (length 0)
     _copy_rows(probs, [reads[i][0] for i in chunk])
     _copy_rows(inits, [reads[i][1] for i in chunk])
@@ -587,10 +561,10 @@ def decode_many_crf(
     unbound in order), is decoded in place: the decoder reads the caller's
     tensor through a view and nothing is copied (the init states are stacked
     unless they are consecutive rows too); the caller's tensors are only
-    read.  Any other batch whose reads' posteriors are all tensors on
-    ``device`` is padded there, with no copy through the host; any other
-    batch is padded on the host and copied to ``device``.  All three give
-    the same results for the same values.  The counters
+    read.  Any other batch is padded where its reads lie
+    (``_pad_crf``): on ``device`` when every posterior is a tensor there,
+    with no copy through the host, else on the host.  Both give the same
+    results for the same values.  The counters
     ``decode_many_crf.frames``, ``decode_many_crf.moved_bytes`` and
     ``decode_many_crf.in_place_frames`` (``utils.profiling``) add what each
     batch decodes, what it copies into buffers, and what it decodes in
@@ -600,14 +574,12 @@ def decode_many_crf(
     (``utils.checkpoint.ENGINE_CLASSES["beam"]``: JAX's None for auto,
     "pallas" and "fast" under the port's "cuda" and "fast").
     Returns ``[(sequence, path, err_code)]`` in input order."""
-    from ..utils.checkpoint import DecodeCheckpoint
-
     if not reads:
         return []
     dev = resolve_device(device)
     engine = _resolve(engine, dev)
     edges = _auto_bucket_edges([r[0].shape[0] for r in reads])
-    S = reads[0][0].shape[1]
+    S, A1 = reads[0][0].shape[1:]
     meta = {
         "crf": True,
         "bucket_edges": edges,
@@ -616,63 +588,30 @@ def decode_many_crf(
         "beam_cut_threshold": float(beam_cut_threshold),
         "engine": engine,
     }
-    ckpt = DecodeCheckpoint.load_or_create(checkpoint_path, meta, kind="beam")
-    try:
-        if ckpt.cursor >= len(reads):
-            return ckpt.results_in_order(len(reads))
 
-        buckets: Dict[int, List[int]] = {}
-        with profiling.stage("decode_many_crf.bucket"):
-            for i, r in enumerate(reads):
-                e = next(e for e in edges if e >= r[0].shape[0])
-                buckets.setdefault(e, []).append(i)
+    def pad(edge, chunk, bs):
+        batch = _crf_in_place(dev, reads, chunk, edge)
+        if batch is not None:
+            probs, inits, lengths, moved = batch
+            frames = len(chunk) * edge
+            profiling.count("decode_many_crf.in_place_frames", frames)
+        else:
+            probs, inits, lengths = _pad_crf(dev, reads, chunk, bs, edge)
+            frames = sum(int(reads[i][0].shape[0]) for i in chunk)
+            moved = 4 * (frames * S * A1 + len(chunk) * S)
+        profiling.count("decode_many_crf.frames", frames)
+        profiling.count("decode_many_crf.moved_bytes", moved)
+        return probs, inits, lengths
 
-        A1 = reads[0][0].shape[2]
-        bs = max(int(batch_size), 1)
-        for edge, idxs in sorted(buckets.items()):
-            todo = [i for i in idxs if i not in ckpt.done]
-            if not todo:
-                continue
-            dec = BatchCrfBeamDecoder(
-                alphabet, T=edge, n_state=S, beam_size=beam_size,
-                beam_cut_threshold=beam_cut_threshold, engine=engine, device=dev,
-            )
-            profiling.log.info(
-                "decode_many_crf: bucket T<=%d, %d reads, batch=%d",
-                edge, len(todo), bs,
-            )
-            for s in range(0, len(todo), bs):
-                chunk = todo[s : s + bs]
-                n = len(chunk)
-                with profiling.stage("decode_many_crf.pad"):
-                    batch = _crf_in_place(dev, reads, chunk, edge)
-                    if batch is not None:
-                        probs, inits, lengths, moved = batch
-                        frames = n * edge
-                        profiling.count("decode_many_crf.in_place_frames", frames)
-                    else:
-                        frames = sum(int(reads[i][0].shape[0]) for i in chunk)
-                        moved = 4 * (frames * S * A1 + n * S)
-                        if all(_on(reads[i][0], dev) for i in chunk):
-                            probs, inits, lengths = _pad_crf_on(dev, reads, chunk, bs, edge)
-                        else:
-                            probs = np.zeros((bs, edge, S, A1), np.float32)
-                            inits = np.zeros((bs, S), np.float32)
-                            inits[:, 0] = 1.0  # padding rows decode empty (length 0)
-                            lengths = np.zeros((bs,), np.int32)
-                            for j, i in enumerate(chunk):
-                                p, st = reads[i][0], reads[i][1]
-                                probs[j, : p.shape[0]] = p
-                                inits[j] = st
-                                lengths[j] = p.shape[0]
-                    profiling.count("decode_many_crf.frames", frames)
-                    profiling.count("decode_many_crf.moved_bytes", moved)
-                res = dec.decode(probs, inits, lengths)[:n]
-                with profiling.stage("decode_many_crf.checkpoint"):
-                    ckpt.record(chunk, res)
-        return ckpt.results_in_order(len(reads))
-    finally:
-        ckpt.close()
+    return _stream(
+        "decode_many_crf", reads, batch_size, checkpoint_path, meta, "beam",
+        key=lambda i: edge_holding(reads[i][0].shape[0], edges),
+        decoder=lambda edge: BatchCrfBeamDecoder(
+            alphabet, T=edge, n_state=S, beam_size=beam_size,
+            beam_cut_threshold=beam_cut_threshold, engine=engine, device=dev,
+        ),
+        pad=pad,
+    )
 
 
 # ---------------------------------------------------------------- duplex
@@ -1084,17 +1023,11 @@ def decode_many_duplex(
     "exact-pallas" as "exact"; the slot engines "pallas", "cuda" and "fast"
     as one another when every pair's window is constant).
     """
-    from ..utils.checkpoint import DecodeCheckpoint
-
     if not pairs:
         return []
     device = resolve_device(device)
     e1s = _auto_bucket_edges([p[0].shape[0] for p in pairs])
     e2s = _auto_bucket_edges([p[1].shape[0] for p in pairs])
-
-    def edge_for(T, edges):
-        return next(e for e in edges if e >= T)
-
     meta = {
         "duplex": True,
         "bucket_edges": [e1s, e2s],
@@ -1104,61 +1037,38 @@ def decode_many_duplex(
         "engine": engine,
     }
     constant = all(_constant_window(p[2] if len(p) > 2 else None) for p in pairs)
-    ckpt = DecodeCheckpoint.load_or_create(
-        checkpoint_path, meta, kind="duplex" if constant else "duplex_moving")
-    try:
-        if ckpt.cursor >= len(pairs):
-            return [(s, e) for s, _, e in ckpt.results_in_order(len(pairs))]
 
-        buckets: Dict[Tuple[int, int], List[int]] = {}
-        with profiling.stage("decode_many_duplex.bucket"):
-            for i, p in enumerate(pairs):
-                key = (edge_for(p[0].shape[0], e1s), edge_for(p[1].shape[0], e2s))
-                buckets.setdefault(key, []).append(i)
+    def pad(edges, chunk, bs):  # a partial batch keeps its own row count
+        n1, lengths = pad_batch([pairs[i][0] for i in chunk], T=edges[0])
+        n2 = pad_batch([pairs[i][1] for i in chunk], T=edges[1])[0]
+        envs = np.zeros((len(chunk), edges[0], 2), np.int64)
+        for j, i in enumerate(chunk):
+            p = pairs[i]
+            len1 = p[0].shape[0]
+            env = p[2] if len(p) > 2 else None
+            if env is None:
+                envs[j, :, 1] = p[1].shape[0]  # full range of read 2
+            else:
+                env = np.asarray(env)
+                envs[j, :len1] = env
+                # rows past len1 are masked by `lengths`, but must stay
+                # monotone-valid: repeat the last row
+                envs[j, len1:] = env[len1 - 1 : len1]
+        return n1, n2, envs, lengths
 
-        A1 = pairs[0][0].shape[1]
-        bs = max(int(batch_size), 1)
-        for (edge1, edge2), idxs in sorted(buckets.items()):
-            todo = [i for i in idxs if i not in ckpt.done]
-            if not todo:
-                continue
-            dec = BatchDuplexDecoder(
-                alphabet, T1=edge1, T2=edge2, beam_size=beam_size,
-                beam_cut_threshold=beam_cut_threshold, collapse_repeats=collapse_repeats,
-                engine=engine, device=device,
-            )
-            profiling.log.info(
-                "decode_many_duplex: bucket T1<=%d T2<=%d, %d pairs, batch=%d",
-                edge1, edge2, len(todo), bs,
-            )
-            for s in range(0, len(todo), bs):
-                chunk = todo[s : s + bs]
-                n = len(chunk)
-                with profiling.stage("decode_many_duplex.pad"):
-                    n1 = np.zeros((n, edge1, A1), np.float32)
-                    n2 = np.zeros((n, edge2, A1), np.float32)
-                    envs = np.zeros((n, edge1, 2), np.int64)
-                    lengths = np.zeros((n,), np.int32)
-                    for j, i in enumerate(chunk):
-                        p = pairs[i]
-                        len1, len2 = p[0].shape[0], p[1].shape[0]
-                        n1[j, :len1] = p[0]
-                        n2[j, :len2] = p[1]
-                        lengths[j] = len1
-                        env = p[2] if len(p) > 2 else None
-                        if env is None:
-                            envs[j, :, 1] = len2  # full range of read 2
-                        else:
-                            env = np.asarray(env)
-                            envs[j, :len1] = env
-                            # rows past len1 are masked by `lengths`, but
-                            # must stay monotone-valid: repeat the last row
-                            envs[j, len1:] = env[len1 - 1 : len1]
-                res = dec.decode(n1, n2, envelopes=envs, lengths=lengths)[:n]
-                with profiling.stage("decode_many_duplex.checkpoint"):
-                    # checkpoint rows are (seq, path, err); duplex has no
-                    # path (reference contract), stored as []
-                    ckpt.record(chunk, [(sq, [], er) for sq, er in res])
-        return [(s, e) for s, _, e in ckpt.results_in_order(len(pairs))]
-    finally:
-        ckpt.close()
+    rows = _stream(
+        "decode_many_duplex", pairs, batch_size, checkpoint_path, meta,
+        "duplex" if constant else "duplex_moving",
+        key=lambda i: (edge_holding(pairs[i][0].shape[0], e1s),
+                       edge_holding(pairs[i][1].shape[0], e2s)),
+        decoder=lambda edges: BatchDuplexDecoder(
+            alphabet, T1=edges[0], T2=edges[1], beam_size=beam_size,
+            beam_cut_threshold=beam_cut_threshold, collapse_repeats=collapse_repeats,
+            engine=engine, device=device,
+        ),
+        pad=pad, noun="pairs",
+        # checkpoint rows are (seq, path, err); duplex has no path
+        # (reference contract), stored as []
+        to_rows=lambda res: [(sq, [], er) for sq, er in res],
+    )
+    return [(sq, er) for sq, _, er in rows]

@@ -32,20 +32,22 @@ def pad_batch(
     return batch, lengths
 
 
+def edge_holding(T: int, edges: Sequence[int]) -> int:
+    """The first of ``edges`` (ascending) that holds ``T`` frames; ValueError
+    when the last cannot."""
+    for e in edges:
+        if T <= e:
+            return e
+    raise ValueError(f"read of length {T} exceeds largest bucket {edges[-1]}")
+
+
 def bucket_reads(
     reads: Sequence[np.ndarray], bucket_edges: Sequence[int]
 ) -> Dict[int, List[int]]:
     """Group read indices into length buckets (edge = max length per bucket);
     one compiled kernel per bucket keeps padding waste bounded."""
     edges = sorted(bucket_edges)
-    buckets: Dict[int, List[int]] = {e: [] for e in edges}
+    buckets: Dict[int, List[int]] = {}
     for i, r in enumerate(reads):
-        for e in edges:
-            if r.shape[0] <= e:
-                buckets[e].append(i)
-                break
-        else:
-            raise ValueError(
-                f"read of length {r.shape[0]} exceeds largest bucket {edges[-1]}"
-            )
-    return {e: idxs for e, idxs in buckets.items() if idxs}
+        buckets.setdefault(edge_holding(r.shape[0], edges), []).append(i)
+    return dict(sorted(buckets.items()))

@@ -15,6 +15,7 @@ import torch
 import oracle
 from fast_ctc_decode_tpu import api as jax_api
 from fast_ctc_decode_tpu_torch import api as port_api
+from fast_ctc_decode_tpu_torch.ops import beam as port_beam
 from fast_ctc_decode_tpu_torch.parallel import pipeline as port_pipeline
 
 torch.set_num_threads(1)
@@ -203,7 +204,8 @@ def test_batch_exact_decoder_and_decode_many_equal_the_api():
         probs[i, :n] = random_data(int(n), seed=10 + i)
     dec = port_pipeline.BatchBeamDecoder("NACGT", T=40, beam_size=5, beam_cut_threshold=0.1,
                                          engine="exact", device="cpu")
-    assert dec.max_nodes == 40 * 5 * 4 + 8
+    # no budget given: each batch gets the worst case for its T
+    assert dec.max_nodes is None and port_beam.default_max_nodes(40, 5, 4) == 40 * 5 * 4 + 8
     got = dec.decode(probs, lengths)
     want = [
         port_api.beam_search(probs[i, :n], ALPHABET, 5, 0.1, device="cpu") + (0,) if n else ("", [], 0)

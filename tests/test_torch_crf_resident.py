@@ -2,8 +2,8 @@
 
 A batch whose posteriors are tensors on ``device`` is padded there, in torch
 buffers, and decodes bit for bit as the same reads given as numpy arrays
-(padded on the host), on every engine of the CPU, with checkpoints resumed
-across the two forms.  The port's sequences, statuses and latest-entry
+(padded into torch buffers on the host), on every engine of the CPU, with
+checkpoints resumed across the two forms.  The port's sequences, statuses and latest-entry
 paths meet the benchmark's frozen NumPy reference (``ctcbench/reference/
 crf.py``) at a sup-class CRF width (1,024 states), and sequences and
 statuses meet the repository's oracle.  A batch of consecutive whole rows
@@ -74,10 +74,11 @@ def test_tensor_batches_reach_the_decoder_as_torch_buffers(monkeypatch):
     reads = crf_reads([9, 9, 9], 16, seed=3)
     decode_many_crf(as_tensors(reads), ALPHA, batch_size=2, device="cpu")
     decode_many_crf(reads, ALPHA, batch_size=2, device="cpu")
-    # the last batch of tensors, one whole read, is decoded in place: one row
+    # the last batch of tensors, one whole read, is decoded in place: one row;
+    # host arrays are padded into torch buffers on the host
     assert seen == [(torch.Tensor, torch.Tensor, (2, 9, 16, 5)),
                     (torch.Tensor, torch.Tensor, (1, 9, 16, 5))] + [
-        (np.ndarray, np.ndarray, (2, 9, 16, 5))] * 2
+        (torch.Tensor, torch.Tensor, (2, 9, 16, 5))] * 2
 
 
 def host_pad(reads, chunk, bs, edge):
@@ -104,14 +105,17 @@ def test_the_device_pad_is_the_host_pad(monkeypatch, lengths, chunk, bs, group):
     if group is not None:
         monkeypatch.setattr(pipeline, "_CAT_ELEMENTS", group * 8 * 8 * 5)
     reads = crf_reads(lengths, 8, seed=4)
-    probs, inits, lens = pipeline._pad_crf_on(torch.device("cpu"), as_tensors(reads), chunk,
-                                              bs, 8)
     want = host_pad(reads, chunk, bs, 8)
-    assert np.array_equal(probs.numpy(), want[0]) and np.array_equal(inits.numpy(), want[1])
-    assert lens.dtype == torch.int32 and np.array_equal(lens.numpy(), want[2])
+    # tensors on the device, and host arrays for the CPU or for a card: the
+    # buffers lie where the reads lie, the host's for arrays
+    for dev, form in (("cpu", as_tensors), ("cpu", list), ("cuda", list)):
+        probs, inits, lens = pipeline._pad_crf(torch.device(dev), form(reads), chunk, bs, 8)
+        assert {probs.device.type, inits.device.type, lens.device.type} == {"cpu"}
+        assert np.array_equal(probs.numpy(), want[0]) and np.array_equal(inits.numpy(), want[1])
+        assert lens.dtype == torch.int32 and np.array_equal(lens.numpy(), want[2])
     # host init states beside posteriors on the device: the same values
     mixed = [(p, i.numpy()) for p, i in as_tensors(reads)]
-    assert np.array_equal(pipeline._pad_crf_on(torch.device("cpu"), mixed, chunk, bs, 8)[1],
+    assert np.array_equal(pipeline._pad_crf(torch.device("cpu"), mixed, chunk, bs, 8)[1],
                           want[1])
 
 
