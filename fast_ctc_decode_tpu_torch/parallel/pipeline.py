@@ -379,9 +379,9 @@ def decode_many(
 
     Reads are grouped into length buckets (``bucket_edges``; auto power-of-2
     edges unless ``T`` pins a single bucket), so mixed-length read sets pay
-    bounded (<= 2x) padding waste.  Each bucket is decoded in ``batch_size``
-    batches on ``device`` (final partial batches are padded with length-0
-    dummy reads, not duplicate decodes) and results are appended to the
+    bounded (<= 2x) padding waste.  Each bucket is decoded in batches of at
+    most ``batch_size`` reads on ``device`` (a bucket's last batch holds only
+    its own reads, no padding rows) and results are appended to the
     JSONL checkpoint per batch: a preempted run restarted with the same
     ``checkpoint_path`` resumes at exactly the undecoded reads.  The
     checkpoint format and its ``meta`` keys are the JAX package's, so a run
@@ -407,18 +407,12 @@ def decode_many(
         "collapse_repeats": bool(collapse_repeats),
         "engine": engine,
     }
-    A1 = reads[0].shape[1]
 
     def pad(edge, chunk, bs):
-        # partial batches ride length-0 padding rows (decoded as empty in
-        # O(1) work), never duplicate decodes
-        probs = np.zeros((bs, edge, A1), np.float32)
-        lengths = np.zeros((bs,), np.int32)
-        for j, i in enumerate(chunk):
-            r = reads[i]
-            probs[j, : r.shape[0]] = r
-            lengths[j] = r.shape[0]
-        return probs, lengths
+        # one row a read of the chunk, zeros past its end: a bucket's last
+        # batch carries no padding rows to upload, decode and fetch (a read
+        # decodes the same in a batch of any size)
+        return pad_batch([reads[i] for i in chunk], T=edge)
 
     return _stream(
         "decode_many", reads, batch_size, checkpoint_path, meta, "beam",

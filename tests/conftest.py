@@ -33,3 +33,7 @@ def _clear_jax_caches_per_module():
     process bounded; per-module compile reuse is unaffected."""
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
