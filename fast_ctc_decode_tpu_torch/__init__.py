@@ -13,7 +13,7 @@ Public surface:
     ``BatchViterbiDecoder``, ``BatchCrfBeamDecoder`` (cuda/fast/exact),
     ``BatchDuplexDecoder`` (cuda/fast/exact), ``BatchCrfDuplexDecoder``
     (fast/exact), and the checkpointable ``decode_many`` /
-    ``decode_many_crf`` / ``decode_many_duplex``;
+    ``decode_many_crf`` / ``decode_many_duplex`` / ``decode_many_crf_duplex``;
   - ``SearchError`` and ``__version__``.
 Beside it: the JSON/HTTP service ``serve`` (``python -m
 fast_ctc_decode_tpu_torch.serve``), the process-group helpers
@@ -44,6 +44,7 @@ from .parallel.pipeline import (
     BatchViterbiDecoder,
     decode_many,
     decode_many_crf,
+    decode_many_crf_duplex,
     decode_many_duplex,
 )
 
@@ -64,6 +65,7 @@ __all__ = [
     "decode_many",
     "decode_many_crf",
     "decode_many_duplex",
+    "decode_many_crf_duplex",
     "SearchError",
     "__version__",
 ]

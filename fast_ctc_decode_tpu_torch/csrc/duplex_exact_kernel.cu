@@ -61,7 +61,8 @@
 // stage rows, 3.3 KB on a 40-cell diagonal at beam 5) leaves the SM's limit
 // of blocks to the scheduler.
 //
-// Bit-parity rules: duplex_core.cuh's ls_add / ls_max; sums with __fadd_rn;
+// Bit-parity rules: duplex_core.cuh's ls_add (ls_add<true>, expf and log1pf
+// correctly rounded, in the CRF instance) / ls_max; sums with __fadd_rn;
 // labels pass the cut as !(p < thr) and blanks as p0 > thr; the selection
 // key maps NaN to +inf, a valid -inf score to -3e38 and adds +0.0;
 // INCOMPARABLE_VALUES needs a NaN score among >= 2 valid candidates; within
@@ -283,7 +284,7 @@ duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
             int col = wrap(org2 + lane, W);
             for (int j = lane; j < jn; j += kLanes) {
               const int t2 = off2 + j;
-              if (t2 >= lo && t2 < hi) v = ls_max(v, ls_add(rl[col], rg[col]));
+              if (t2 >= lo && t2 < hi) v = ls_max(v, ls_add<CRF>(rl[col], rg[col]));
               col = wrap(col + kLanes, W);
             }
             mx = warp_max(v);
@@ -301,7 +302,7 @@ duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
             last_lab = rl[c];
             last_gap = rg[c];
           }
-          float last_tot = ls_add(last_lab, last_gap);
+          float last_tot = ls_add<CRF>(last_lab, last_gap);
           // appended cells [off2 + L2, hi), a stage row at a time: their
           // bases over the lanes, then the chain on lane 0
           float* bases = stage + (size_t)s * W;
@@ -311,12 +312,12 @@ duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
             for (int j = lane; j < n_new; j += kLanes) {
               float pvl, pvg;
               band_get(pb, par < 0, root_gap, Wr, W, c0 + j - 1, pvl, pvg);
-              bases[j] = prep ? pvg : ls_add(pvl, pvg);
+              bases[j] = prep ? pvg : ls_add<CRF>(pvl, pvg);
             }
             __syncwarp();
             if (lane == 0) {
               int w = c0 - off2;  // the cell's column before the ring, clamped
-              cell_chain(
+              cell_chain<CRF>(
                   n_new, last_lab, last_tot, mx,
                   [&](int j, float& bse, float& r0, float& ra) {
                     const float* r2 = row2(c0 + j, st);
@@ -399,7 +400,7 @@ duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
       for (int j = tid; j < n_cells; j += kThreads) {
         float pvl, pvg;
         band_get(tb, node < 0, root_gap, Wr, W, lo + j - 1, pvl, pvg);
-        tot_row[j] = ls_add(pvl, pvg);
+        tot_row[j] = ls_add<CRF>(pvl, pvg);
         gap_row[j] = pvg;
       }
     }
@@ -413,7 +414,7 @@ duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
         const float* bs = stage + (size_t)((is_rep ? K : 0) + k) * W;
         const int st = bm.state[k];
         float last_lab = neg_inf(), last_tot = neg_inf(), mx = neg_inf();
-        cell_chain(
+        cell_chain<CRF>(
             n_cells, last_lab, last_tot, mx,
             [&](int j, float& bse, float& r0, float& ra) {
               const float* r2 = row2(lo + j, st);
@@ -433,7 +434,7 @@ duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
       __syncwarp();
 
       // ---- analytic merge: a node receives blank + stay + ONE nid mass ----
-      const float p1tot_k = ls_add(bm.p1l[k], bm.p1g[k]);
+      const float p1tot_k = ls_add<CRF>(bm.p1l[k], bm.p1g[k]);
       float m_nid = __fadd_rn(p1tot_k, plab);
       if (is_rep) m_nid = __fadd_rn(bm.p1g[k], plab);
       const bool push_nid = pushed && nid >= 0;
@@ -460,7 +461,7 @@ duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
         const int nj = bm.node[lane];
         const float* r1j = row1(t, bm.state[lane]);
         const float p0 = r1j[0];
-        const float p1tot = ls_add(bm.p1l[lane], bm.p1g[lane]);
+        const float p1tot = ls_add<CRF>(bm.p1l[lane], bm.p1g[lane]);
         const bool push_b = vj && p0 > thr;
         if (push_b) tgap = __fadd_rn(p1tot, p0);
         bool stay_any = false;
@@ -472,7 +473,7 @@ duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
             stay = __fadd_rn(bm.p1l[lane], r1j[1 + tl]);
           }
         }
-        tlab = ls_add(stay, recv);
+        tlab = ls_add<CRF>(stay, recv);
         tvalid = push_b || stay_any || recv_any;
       }
 
@@ -481,8 +482,8 @@ duplex_exact_kernel(const float* __restrict__ l1, const float* __restrict__ l2,
       const float tp2 =
           (tvalid && tnode >= 0) ? tr.bmax[tnode] : (lane < K ? bm.p2m[lane] : neg_inf());
       const float fp2 = (fvalid && nid >= 0) ? tr.bmax[nid] : neg_inf();
-      const float tscore = __fadd_rn(ls_add(tlab, tgap), tp2);
-      const float fscore = __fadd_rn(ls_add(m_nid, neg_inf()), fp2);
+      const float tscore = __fadd_rn(ls_add<CRF>(tlab, tgap), tp2);
+      const float fscore = __fadd_rn(ls_add<CRF>(m_nid, neg_inf()), fp2);
       const int cnt =
           __popc(__ballot_sync(kFull, tvalid)) + __popc(__ballot_sync(kFull, fvalid));
       const bool any_nan =

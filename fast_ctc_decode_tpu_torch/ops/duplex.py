@@ -27,6 +27,12 @@ band, as the reference does:
  - **Merge and selection**: blank + stay + one arrival per node, then K
    rounds of (max score, tie -> min node id); a valid -inf score maps to a
    finite key below any real score (``_NEG_VALID``) so it stays selectable.
+ - **CRF arithmetic**: the CRF engine's logsumexps take ``exp`` and
+   ``log1p`` correctly rounded (``duplex_fast.ls_add_cr``), as the libm
+   functions the reference calls nearly always give them; the plain engine
+   keeps the float32 ones (``ls_add``).  On pairs of thousands of frames a
+   float32 function an ulp off on a fraction of its arguments moves near
+   ties of the beam, and the consensus with them.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from .duplex_fast import (
     _root_read,
     check_pair_batch,
     ls_add,
+    ls_add_cr,
     ls_max,
 )
 
@@ -129,6 +136,7 @@ def _extend_bands(c, l2, root_gap, lo, hi, ext_flag, *, A, crf):
     in ``c`` must already be node-sorted; each node appends every cell of
     [end, hi), as the reference does (the JAX engine's static ``Wext`` bound
     never binds with its own envelope prep)."""
+    add = ls_add_cr if crf else ls_add
     B, K = c.node.shape
     W = c.blab.shape[2]
     N = c.blab.shape[1] - 1
@@ -156,7 +164,7 @@ def _extend_bands(c, l2, root_gap, lo, hi, ext_flag, *, A, crf):
         L2 = torch.where(do_discard, torch.where(emptied, 0, ln - shift), ln)
         t2s = off2[:, None] + jidx
         win = (jidx < L2[:, None]) & (t2s >= lo[:, None]) & (t2s < hi[:, None])
-        mx = torch.where(do_discard, _nan_clean_max(ls_add(row_lab, row_gap), win), bmax[bi, n0])
+        mx = torch.where(do_discard, _nan_clean_max(add(row_lab, row_gap), win), bmax[bi, n0])
 
         # append cells [end, hi) reading the parent's (updated) band
         par = c.parent[bi, n0].long()
@@ -175,15 +183,15 @@ def _extend_bands(c, l2, root_gap, lo, hi, ext_flag, *, A, crf):
             a = j < n_new
             t2 = cur_end + j
             r = _l2_rows(l2, t2, st, crf)
-            gap_n = ls_add(last_lab, last_gap) + r[:, 0]
+            gap_n = add(last_lab, last_gap) + r[:, 0]
             pvl, pvg = _band_get(c, root_gap, par[:, None], (t2 - 1)[:, None, None])
             pvl, pvg = pvl[:, 0, 0], pvg[:, 0, 0]
-            base = torch.where(prep, pvg, ls_add(pvl, pvg))
-            lab_n = r.gather(1, lab_idx)[:, 0] + ls_add(last_lab, base)
+            base = torch.where(prep, pvg, add(pvl, pvg))
+            lab_n = r.gather(1, lab_idx)[:, 0] + add(last_lab, base)
             widx = (t2 - off2).clamp(0, W - 1)[:, None]
             row_lab = row_lab.scatter(1, widx, torch.where(a, lab_n, row_lab.gather(1, widx)[:, 0])[:, None])
             row_gap = row_gap.scatter(1, widx, torch.where(a, gap_n, row_gap.gather(1, widx)[:, 0])[:, None])
-            mx = torch.where(a, ls_max(mx, ls_add(lab_n, gap_n)), mx)
+            mx = torch.where(a, ls_max(mx, add(lab_n, gap_n)), mx)
             last_lab = torch.where(a, lab_n, last_lab)
             last_gap = torch.where(a, gap_n, last_gap)
 
@@ -200,13 +208,14 @@ def _build_bands(c, l2, root_gap, lo, hi, wc, is_rep, crf):
     """build_secondary_probs (duplex.rs:212-249 / 251-288) for all [K, A]
     candidate children of a step, cell by cell over [lo, lo + wc).
     Returns (lab, gap [B, K, A, wc]; max [B, K, A] over [lo, hi))."""
+    add = ls_add_cr if crf else ls_add
     B, K = c.node.shape
     A = is_rep.shape[2]
     dev = c.blab.device
     j = torch.arange(wc, device=dev)
     t2 = (lo[:, None] + j)[:, None, :].expand(B, K, wc)
     pv_lab, pv_gap = _band_get(c, root_gap, c.node, t2 - 1)
-    pv_tot = ls_add(pv_lab, pv_gap)
+    pv_tot = add(pv_lab, pv_gap)
     base = torch.where(is_rep[..., None], pv_gap[:, :, None], pv_tot[:, :, None])  # [B, K, A, wc]
     if crf:
         rows = _l2_rows(l2, t2, c.state[..., None].expand(B, K, wc), True)
@@ -221,8 +230,8 @@ def _build_bands(c, l2, root_gap, lo, hi, wc, is_rep, crf):
     for i in range(wc):
         r = rows[:, :, i]
         gap[..., i] = last_tot + r[..., :1]
-        lab[..., i] = r[..., 1:] + ls_add(last_lab, base[..., i])
-        tot[..., i] = ls_add(lab[..., i], gap[..., i])
+        lab[..., i] = r[..., 1:] + add(last_lab, base[..., i])
+        tot[..., i] = add(lab[..., i], gap[..., i])
         last_lab, last_tot = lab[..., i], tot[..., i]
     if wc == 0:
         return lab, gap, torch.full((B, K, A), NEG, dtype=torch.float32, device=dev)
@@ -239,14 +248,15 @@ def _sort_beam_by_node(c):
                       p2m=g(c.p2m), valid=g(c.valid))
 
 
-def _merge_select(node, lv, gv, p2m, state, valid, bmax, K):
+def _merge_select(node, lv, gv, p2m, state, valid, bmax, K, add=ls_add):
     """Top-K selection over the merged, duplicate-free candidate plane
     [B, C]: prob_2_max refreshes from the tree for real nodes
-    (duplex.rs:613-618), then K rounds of (max score, tie -> min node id)."""
+    (duplex.rs:613-618), then K rounds of (max score, tie -> min node id);
+    ``add`` is the engine's logsumexp."""
     N = bmax.shape[1] - 1
     is_node = node >= 0
     p2m_r = torch.where(valid & is_node, bmax.gather(1, node.long().clamp(0, N - 1)), p2m)
-    score = ls_add(lv, gv) + p2m_r
+    score = add(lv, gv) + p2m_r
     cnt = valid.sum(1)
     nan_flag = (cnt >= 2) & (valid & score.isnan()).any(1)
     empty_flag = cnt == 0
@@ -278,6 +288,7 @@ def _merge_select(node, lv, gv, p2m, state, valid, bmax, K):
 def _step(c, t, l1t, l2, root_gap, lo, hi, wc, lengths, thr, *, A, K, N, collapse, crf,
           needs_ext):
     """One network_1 step of the tree engine for every pair."""
+    add = ls_add_cr if crf else ls_add
     B = c.node.shape[0]
     dev = l2.device
     in_range = t < lengths
@@ -332,7 +343,7 @@ def _step(c, t, l1t, l2, root_gap, lo, hi, wc, lengths, thr, *, A, K, N, collaps
 
     # ---- analytic merge (duplex.rs:530-618): a node receives at most its
     # blank, its stay (collapsed repeat) and ONE nid-targeted mass ----
-    p1tot = ls_add(c.p1l, c.p1g)
+    p1tot = add(c.p1l, c.p1g)
     push_b = c.valid & (p0 > thr)
     g_tip = torch.where(push_b, p1tot + p0, NEG)
     push_nid = pushed_lab & (nid >= 0)
@@ -352,7 +363,7 @@ def _step(c, t, l1t, l2, root_gap, lo, hi, wc, lengths, thr, *, A, K, N, collaps
     recv = torch.where(eq, m_nid[:, None], NEG).amax(3).amax(2)
     recv_any = eq.any(3).any(2)
     matched = eq.any(1)
-    l_tip = ls_add(stay_l, recv)
+    l_tip = add(stay_l, recv)
     tip_valid = push_b | stay_any | recv_any
 
     node_n, l_n, g_n, p2_n, st_n, valid_n, nan_flag, empty_flag = _merge_select(
@@ -362,7 +373,7 @@ def _step(c, t, l1t, l2, root_gap, lo, hi, wc, lengths, thr, *, A, K, N, collaps
         torch.cat([c.p2m, torch.full((B, K * A), NEG, device=dev)], 1),
         torch.cat([c.state, state_f], 1),
         torch.cat([tip_valid, (push_nid & ~matched).reshape(B, K * A)], 1),
-        c.bmax, K,
+        c.bmax, K, add,
     )
     step_err = torch.where(
         overflow, errors.NODE_OVERFLOW,

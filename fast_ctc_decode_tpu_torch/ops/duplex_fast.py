@@ -54,6 +54,18 @@ def ls_add(a, b):
     return torch.where(small == NEG, big, big + torch.log1p(torch.exp(small - big)))
 
 
+def ls_add_cr(a, b):
+    """``ls_add`` with ``exp`` and ``log1p`` correctly rounded: each computed
+    in float64 and rounded once to float32, as the libm ``expf`` / ``log1pf``
+    that the reference's f32 ``exp`` / ``ln_1p`` call nearly always give (the
+    CRF tree engine's; ``csrc/duplex_core.cuh``'s ``ls_add<true>``)."""
+    cond = a <= b
+    big = torch.where(cond, b, a)
+    small = torch.where(cond, a, b)
+    e = torch.exp((small - big).double()).float()
+    return torch.where(small == NEG, big, big + torch.log1p(e.double()).float())
+
+
 def ls_max(m, t):
     """LogSpace::max: NaN in ``t`` never replaces ``m`` (duplex.rs:33-39)."""
     return torch.where(m < t, t, m)
@@ -582,13 +594,35 @@ def _prep_envelope_fast(envelope: np.ndarray, T2: int) -> EnvPrep:
     return EnvPrep(p.lo[0], p.hi[0], int(p.W[0]), int(p.Wr[0]), bool(p.needs_ext[0]))
 
 
-def log_inputs(net1, net2, threshold):
-    """f32 log of both networks and of the cut threshold, on the host."""
+def _log_rounded_once(x) -> np.ndarray:
+    """float32 ``log`` of ``x`` [B, ...] taken in float64 and rounded once
+    (the correctly rounded float32 log), a row of the batch at a time."""
+    x = np.asarray(x, np.float32)
+    out = np.empty(x.shape, np.float32)
+    for b in range(x.shape[0]):
+        out[b] = np.log(x[b].astype(np.float64))
+    return out
+
+
+def log_inputs(net1, net2, threshold, *, rounded_once=False):
+    """f32 log of both networks and of the cut threshold, on the host:
+    numpy's float32 ``log``, as the JAX package takes it, or with
+    ``rounded_once`` the correctly rounded one (taken in float64 and rounded
+    once to float32), as the CRF duplex inputs take it on every path."""
     with np.errstate(divide="ignore", invalid="ignore"):
-        l1 = np.log(np.asarray(net1, np.float32), dtype=np.float32)
-        l2 = np.log(np.asarray(net2, np.float32), dtype=np.float32)
-        thr = np.float32(np.log(np.float32(threshold)))
-    return l1, l2, thr
+        if rounded_once:
+            l1, l2 = _log_rounded_once(net1), _log_rounded_once(net2)
+        else:
+            l1 = np.log(np.asarray(net1, np.float32), dtype=np.float32)
+            l2 = np.log(np.asarray(net2, np.float32), dtype=np.float32)
+    return l1, l2, log_threshold(threshold, rounded_once=rounded_once)
+
+
+def log_threshold(threshold, *, rounded_once=False):
+    """f32 log of the cut threshold, as ``log_inputs`` takes it."""
+    t = np.float32(threshold)
+    with np.errstate(divide="ignore"):
+        return np.float32(np.log(np.float64(t))) if rounded_once else np.float32(np.log(t))
 
 
 def root_gap_host(l2: np.ndarray, wr_b, Wr: int) -> np.ndarray:
@@ -603,19 +637,39 @@ def root_gap_host(l2: np.ndarray, wr_b, Wr: int) -> np.ndarray:
     return root_gap
 
 
-def crf_root_gap_host(l2: np.ndarray, init2: np.ndarray, wr_b, Wr: int) -> np.ndarray:
-    """CRF root bands, [B, Wr] f32 on the host: the blank-state trajectory
-    from argmax(init2) (duplex.rs:411-441), -inf past each pair's ``wr_b``."""
-    B, _, S, A1 = l2.shape
-    A = A1 - 1
+def crf_root_states(start, S: int, A: int, Wr: int) -> np.ndarray:
+    """The blank-state walk of the CRF root bands, ``[B, Wr - 1]`` int64:
+    ``start`` [B] (argmax of init2) at cell 0, then ``state * A % S`` a cell
+    (duplex.rs:411-441)."""
+    states = np.empty((len(start), max(Wr - 1, 0)), np.int64)
+    s = np.asarray(start, np.int64)
+    for i in range(Wr - 1):
+        states[:, i] = s
+        s = (s * A) % S
+    return states
+
+
+def crf_root_gap_sum(blanks: np.ndarray, wr_b, Wr: int) -> np.ndarray:
+    """CRF root bands, [B, Wr] f32, from the blank entries ``blanks``
+    [B, Wr - 1] the walk reads: their running f32 sum in cell order, -inf
+    past each pair's ``wr_b``."""
+    B = blanks.shape[0]
     root_gap = np.full((B, Wr), -np.inf, np.float32)
-    states = np.argmax(np.asarray(init2, np.float32), axis=1).astype(np.int64)
     cur = np.zeros((B,), np.float32)
     wr_b = np.asarray(wr_b)
     root_gap[:, 0] = 0.0
     for i in range(Wr - 1):
-        cur = (cur + l2[np.arange(B), i, states, 0]).astype(np.float32)
+        cur = (cur + blanks[:, i]).astype(np.float32)
         live = i + 1 < wr_b
         root_gap[live, i + 1] = cur[live]
-        states = (states * A) % S
     return root_gap
+
+
+def crf_root_gap_host(l2: np.ndarray, init2: np.ndarray, wr_b, Wr: int) -> np.ndarray:
+    """CRF root bands, [B, Wr] f32 on the host: the blank-state trajectory
+    from argmax(init2) (duplex.rs:411-441), -inf past each pair's ``wr_b``."""
+    B, _, S, A1 = l2.shape
+    start = np.argmax(np.asarray(init2, np.float32), axis=1)
+    states = crf_root_states(start, S, A1 - 1, Wr)
+    blanks = l2[np.arange(B)[:, None], np.arange(Wr - 1)[None, :], states, 0]
+    return crf_root_gap_sum(blanks, wr_b, Wr)

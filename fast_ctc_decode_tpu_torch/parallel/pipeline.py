@@ -620,8 +620,10 @@ EXACT_FREE_SHARE = 0.9
 
 
 class DuplexBatch(NamedTuple):
-    """A padded duplex batch prepared on the host, as the JAX package
-    prepares it, with the static arguments of the engines."""
+    """A padded duplex batch prepared as the JAX package prepares it, with
+    the static arguments of the engines.  Its arrays are host numpy arrays,
+    except where ``prep_duplex_batch`` prepared a batch on its device: there
+    ``l1``, ``l2`` and ``init_states`` are tensors on that device."""
 
     l1: np.ndarray  # [B, T1, (S,) A+1] f32 log probabilities
     l2: np.ndarray  # [B, T2, (S,) A+1]
@@ -637,9 +639,15 @@ class DuplexBatch(NamedTuple):
 
     def tensors(self, device, s: slice = slice(None)):
         """(l1, l2, root_gap, lo, hi, thr, init_states, lengths) of pairs
-        ``s`` with the arrays on ``device``."""
+        ``s`` with the arrays on ``device``; a tensor already there is
+        sliced, not copied."""
         dev = torch.device(device)
-        put = lambda x: torch.from_numpy(np.ascontiguousarray(x[s])).to(dev)  # noqa: E731
+
+        def put(x):
+            if isinstance(x, torch.Tensor):
+                return x[s].to(dev).contiguous()
+            return torch.from_numpy(np.ascontiguousarray(x[s])).to(dev)
+
         return (put(self.l1), put(self.l2), put(self.root_gap), put(self.lo), put(self.hi),
                 self.thr, put(self.init_states), put(self.lengths))
 
@@ -649,19 +657,33 @@ class DuplexBatch(NamedTuple):
             self.lo.shape[1], int(beam_size), self.l1.shape[-1] - 1, self.W
         )
 
-    def nbytes(self) -> int:
-        """Bytes of the batch's arrays on a device, with the engines' outputs
+    def nbytes(self, device=None) -> int:
+        """Bytes the batch still adds on ``device``: its arrays (those not
+        already there; every one for None), with the engines' outputs
         (labels_rev [B, T1], count, err; int32) twice: the chunks' and their
         concatenation."""
         B, T1 = self.lo.shape
         arrays = (self.l1, self.l2, self.root_gap, self.lo, self.hi, self.init_states,
                   self.lengths)
-        return sum(x.nbytes for x in arrays) + 2 * 4 * B * (T1 + 2)
+        on = (lambda x: False) if device is None else (lambda x: _on(x, torch.device(device)))
+        return sum(x.nbytes for x in arrays if not on(x)) + 2 * 4 * B * (T1 + 2)
+
+
+class LogScores(NamedTuple):
+    """A CRF duplex batch's scores already in log space, on the device that
+    decodes them: ``[B, T, S, A+1]`` float32, ``log(0) = -inf`` past each
+    read's end (``decode_many_crf_duplex``'s pad on the card makes them)."""
+
+    logs: torch.Tensor
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def prep_duplex_batch(net1, net2, envelopes, lengths, threshold, *, T1, T2, init1=None,
                       init2=None) -> DuplexBatch:
-    """Host preparation of a duplex batch, shared by every duplex entry point.
+    """Preparation of a duplex batch, shared by every duplex entry point.
 
     net1 [B, T1, (S,) A+1], net2 [B, T2, (S,) A+1] linear probabilities
     (numpy or tensors); ``envelopes`` None (the full range of read 2),
@@ -669,19 +691,32 @@ def prep_duplex_batch(net1, net2, envelopes, lengths, threshold, *, T1, T2, init
     ``lengths`` [B] (None = T1); ``init1``/``init2`` [B, S] for CRF.  The
     log conversion and the root bands (cumsum, or the CRF blank-state walk)
     run on the host in numpy f32, as in the JAX package, so both packages
-    see the same inputs bit for bit."""
-    def host(a):
-        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    see the same inputs bit for bit; except that CRF logs (of both reads and
+    of the threshold) are the correctly rounded float32 ones, taken in
+    float64 and rounded once, on every path, so that a CRF pair decodes
+    alike wherever its scores lie (numpy's float32 ``log``, the JAX
+    package's, is a few ulps off it on about a fifth of arguments).
 
-    net1, net2 = host(net1), host(net2)
-    B = net1.shape[0]
-    shared_env = envelopes is None or host(envelopes).ndim == 2
+    CRF scores given as ``LogScores`` (both reads, with ``init1``/``init2``
+    tensors on their device) are prepared where they lie: ``l1``, ``l2``
+    are those tensors, the init states' argmax (the first maximum, as
+    ``np.argmax``) is taken there, and of the root bands only the blank
+    entries the walk reads (``B x (Wr - 1)`` floats) come home, to be summed
+    in order as ``crf_root_gap_host`` sums them.  The envelopes are clamped
+    on the host in both cases."""
+    if isinstance(net1, LogScores):
+        l1, l2 = net1.logs, net2.logs
+        thr = duplex_fast_ops.log_threshold(threshold, rounded_once=True)
+    else:
+        l1, l2, thr = duplex_fast_ops.log_inputs(_host(net1), _host(net2), threshold,
+                                                 rounded_once=init1 is not None)
+    B = l1.shape[0]
+    shared_env = envelopes is None or _host(envelopes).ndim == 2
     if envelopes is None:
         envelopes = np.zeros((T1, 2), np.int64)
         envelopes[:, 1] = T2
-    envelopes = host(envelopes).astype(np.int64)
-    lengths = np.full((B,), T1, np.int32) if lengths is None else host(lengths).astype(np.int32)
-    l1, l2, thr = duplex_fast_ops.log_inputs(net1, net2, threshold)
+    envelopes = _host(envelopes).astype(np.int64)
+    lengths = np.full((B,), T1, np.int32) if lengths is None else _host(lengths).astype(np.int32)
     ep = duplex_fast_ops.prep_envelopes(envelopes[None] if shared_env else envelopes, T2)
     lo, hi, wr_b = ep.lo, ep.hi, ep.Wr
     if shared_env:
@@ -690,9 +725,17 @@ def prep_duplex_batch(net1, net2, envelopes, lengths, threshold, *, T1, T2, init
     if init1 is None:
         root_gap = duplex_fast_ops.root_gap_host(l2, wr_b, Wr)
         init_states = np.zeros((B,), np.int32)
+    elif isinstance(l2, torch.Tensor):
+        init_states = init1.float().argmax(1).to(torch.int32)
+        S, A = l2.shape[2], l2.shape[3] - 1
+        states = duplex_fast_ops.crf_root_states(_host(init2.float().argmax(1)), S, A, Wr)
+        dev = l2.device
+        blanks = l2[torch.arange(B, device=dev)[:, None], torch.arange(Wr - 1, device=dev),
+                    torch.from_numpy(states).to(dev), 0]
+        root_gap = duplex_fast_ops.crf_root_gap_sum(_host(blanks), wr_b, Wr)
     else:
-        root_gap = duplex_fast_ops.crf_root_gap_host(l2, host(init2), wr_b, Wr)
-        init_states = np.argmax(host(init1).astype(np.float32), axis=1).astype(np.int32)
+        root_gap = duplex_fast_ops.crf_root_gap_host(l2, _host(init2), wr_b, Wr)
+        init_states = np.argmax(_host(init1).astype(np.float32), axis=1).astype(np.int32)
     return DuplexBatch(
         l1, l2, root_gap, lo, hi, thr, init_states, lengths,
         needs_ext=bool(ep.needs_ext.any()),
@@ -752,9 +795,9 @@ def exact_launch_pairs(batch: DuplexBatch, device, *, beam_size, crf, max_nodes=
     ``budget_bytes`` None: on a CUDA device ``EXACT_FREE_SHARE`` of the
     card's free memory (what ``cudaMemGetInfo`` reports free plus what PyTorch's
     caching allocator holds unused), taken now, before the scratch exists,
-    less ``batch.nbytes()``, in whole waves of SMs x the tree kernel's
-    blocks per SM; on the CPU ``EXACT_CHUNK_BYTES``, at least one pair a
-    chunk."""
+    less ``batch.nbytes(device)`` (the bytes not on the card yet), in whole
+    waves of SMs x the tree kernel's blocks per SM; on the CPU
+    ``EXACT_CHUNK_BYTES``, at least one pair a chunk."""
     dev = torch.device(device)
     K = int(beam_size)
     N = batch.max_nodes(K) if max_nodes is None else int(max_nodes)
@@ -766,7 +809,7 @@ def exact_launch_pairs(batch: DuplexBatch, device, *, beam_size, crf, max_nodes=
         with torch.cuda.device(dev):
             free = torch.cuda.mem_get_info(dev)[0]
             free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-            budget = int(EXACT_FREE_SHARE * free) - batch.nbytes()
+            budget = int(EXACT_FREE_SHARE * free) - batch.nbytes(dev)
             wave = (torch.cuda.get_device_properties(dev).multi_processor_count
                     * duplex_exact_cuda.launch_shape(K, batch.W, crf=crf)["blocks_per_sm"])
     else:
@@ -935,6 +978,11 @@ class BatchCrfDuplexDecoder:
       - "fast": the plain CRF slot engine everywhere.
       - "exact": the tree engine: the CRF tree kernel on CUDA, the plain
         engine on the CPU.
+    The tree engines' logsumexps take ``exp`` and ``log1p`` correctly rounded
+    (``ops/duplex_fast.ls_add_cr``), as upstream's libm calls nearly always
+    give them; the slot engine keeps the float32 library functions.  The
+    inputs' logs are the correctly rounded float32 ones on every path
+    (``prep_duplex_batch``).
     """
 
     def __init__(
@@ -985,8 +1033,25 @@ def _constant_window(envelope) -> bool:
     """True for no envelope (the full range) or one whose rows are all equal."""
     if envelope is None:
         return True
-    env = np.asarray(envelope)
+    env = _host(envelope)
     return bool(np.all(env == env[:1]))
+
+
+def _pad_envelopes(rows, edge1: int) -> np.ndarray:
+    """``[len(rows), edge1, 2]`` int64 envelopes of a duplex batch from
+    ``(len1, len2, envelope)`` a pair: the envelope (None: the full range of
+    read 2), its last row repeated past read 1's end."""
+    envs = np.zeros((len(rows), edge1, 2), np.int64)
+    for j, (len1, len2, env) in enumerate(rows):
+        if env is None:
+            envs[j, :, 1] = len2  # full range of read 2
+        else:
+            env = _host(env)
+            envs[j, :len1] = env
+            # rows past len1 are masked by `lengths`, but must stay
+            # monotone-valid: repeat the last row
+            envs[j, len1:] = env[len1 - 1 : len1]
+    return envs
 
 
 @profiling.stage("decode_many_duplex")
@@ -1035,19 +1100,9 @@ def decode_many_duplex(
     def pad(edges, chunk, bs):  # a partial batch keeps its own row count
         n1, lengths = pad_batch([pairs[i][0] for i in chunk], T=edges[0])
         n2 = pad_batch([pairs[i][1] for i in chunk], T=edges[1])[0]
-        envs = np.zeros((len(chunk), edges[0], 2), np.int64)
-        for j, i in enumerate(chunk):
-            p = pairs[i]
-            len1 = p[0].shape[0]
-            env = p[2] if len(p) > 2 else None
-            if env is None:
-                envs[j, :, 1] = p[1].shape[0]  # full range of read 2
-            else:
-                env = np.asarray(env)
-                envs[j, :len1] = env
-                # rows past len1 are masked by `lengths`, but must stay
-                # monotone-valid: repeat the last row
-                envs[j, len1:] = env[len1 - 1 : len1]
+        envs = _pad_envelopes([(pairs[i][0].shape[0], pairs[i][1].shape[0],
+                                pairs[i][2] if len(pairs[i]) > 2 else None) for i in chunk],
+                              edges[0])
         return n1, n2, envs, lengths
 
     rows = _stream(
@@ -1063,6 +1118,127 @@ def decode_many_duplex(
         pad=pad, noun="pairs",
         # checkpoint rows are (seq, path, err); duplex has no path
         # (reference contract), stored as []
+        to_rows=lambda res: [(sq, [], er) for sq, er in res],
+    )
+    return [(sq, er) for sq, _, er in rows]
+
+
+def _pad_crf_duplex(device, pairs, chunk, edges):
+    """``decode_many_crf_duplex``'s pad of ``chunk``: ``(net1, init1, net2,
+    init2, envelopes, lengths)`` for ``BatchCrfDuplexDecoder.decode``, one
+    row a pair, each read padded to its bucket's edge.
+
+    Where every posterior and init state of the batch is a float32 tensor
+    on ``device``, nothing goes through the host: each read's ``log``,
+    computed in float64 and rounded once (the correctly rounded float32
+    log), is written into ``[n, edge, S, A+1]`` buffers there (``-inf``, the
+    log of 0, past its end), handed on as ``LogScores``, and the init states
+    are stacked there.  Any other batch is padded with zeros on the host, as
+    ``decode_many_duplex`` pads, for ``prep_duplex_batch`` to take its
+    logs.  The envelopes and lengths are small host arrays either way."""
+    ps = [pairs[i] for i in chunk]
+    e1, e2 = edges
+    S, A1 = ps[0][0].shape[1:]
+    lengths = np.array([p[0].shape[0] for p in ps], np.int32)
+    envs = _pad_envelopes([(p[0].shape[0], p[2].shape[0], p[4] if len(p) > 4 else None)
+                           for p in ps], e1)
+    if all(_on(x, device) and x.dtype is torch.float32 for p in ps for x in p[:4]):
+        nets = []
+        for k, edge in ((0, e1), (2, e2)):
+            logs = torch.empty((len(ps), edge, S, A1), dtype=torch.float32, device=device)
+            for j, p in enumerate(ps):
+                T = p[k].shape[0]
+                logs[j, :T] = p[k].double().log_()  # rounded once to float32
+                logs[j, T:] = float("-inf")
+            nets.append(LogScores(logs))
+        inits = [torch.stack([p[k] for p in ps]) for k in (1, 3)]
+        return nets[0], inits[0], nets[1], inits[1], envs, lengths
+    nets = []
+    for k, edge in ((0, e1), (2, e2)):
+        buf = np.zeros((len(ps), edge, S, A1), np.float32)
+        for j, p in enumerate(ps):
+            x = _host(p[k])
+            buf[j, : x.shape[0]] = x
+        nets.append(buf)
+    inits = [np.stack([_host(p[k]).astype(np.float32) for p in ps]) for k in (1, 3)]
+    return nets[0], inits[0], nets[1], inits[1], envs, lengths
+
+
+@profiling.stage("decode_many_crf_duplex")
+def decode_many_crf_duplex(
+    pairs: Sequence,
+    alphabet,
+    *,
+    beam_size: int = 5,
+    beam_cut_threshold: float = 0.0,
+    batch_size: int = 64,
+    engine: Optional[str] = None,
+    device=None,
+    checkpoint_path: Optional[str] = None,
+) -> List[Tuple[str, int]]:
+    """Decode a long list of CRF read pairs with checkpoint/resume: the CRF
+    duplex analog of ``decode_many_duplex`` (reference duplex.rs:652-834).
+
+    ``pairs`` entries are ``(net1 [T1, S, A+1], init1 [S], net2 [T2, S,
+    A+1], init2 [S])`` or the same with a ``[T1, 2]`` envelope last (None or
+    omitted = the full range of read 2); linear probabilities, numpy arrays
+    or tensors.  Pairs are grouped into (T1, T2) power-of-two buckets, one
+    ``BatchCrfDuplexDecoder`` a bucket (``engine`` as there), at most
+    ``batch_size`` pairs a batch; read 1 rides per-pair ``lengths``, read 2
+    the per-pair envelope.
+
+    A batch whose posteriors and init states are all float32 tensors on
+    ``device`` (scores a network left on the card) is padded and prepared
+    there (``_pad_crf_duplex``, ``prep_duplex_batch``): the logs are taken
+    on the device and no posterior goes through the host.  Any other batch
+    takes the host path of ``decode_many_duplex``: a zero pad, then the logs
+    in numpy.  Both paths take the correctly rounded float32 log (in
+    float64, rounded once), so they hand the decoder the same logs, and a
+    pair decodes to the same sequence and status code on either path,
+    whatever its length (two float64 logs may differ in their last bit,
+    which moves the rounding to float32 on about one argument in 2^28).
+
+    The counters ``decode_many_crf_duplex.frames`` (the real frames of both
+    reads) and ``decode_many_crf_duplex.batch_frames`` (the frames of both
+    reads in the batches handed to the decoder, bucket padding included)
+    add what each batch decodes.  The checkpoint's ``meta`` holds
+    ``decode_many_duplex``'s keys (``collapse_repeats`` False: CRF duplex
+    never collapses) with ``"crf": True`` and ``"n_state"``.  Returns
+    ``[(sequence, err_code)]`` in input order."""
+    if not pairs:
+        return []
+    device = resolve_device(device)
+    e1s = _auto_bucket_edges([p[0].shape[0] for p in pairs])
+    e2s = _auto_bucket_edges([p[2].shape[0] for p in pairs])
+    S = int(pairs[0][0].shape[1])
+    meta = {
+        "duplex": True,
+        "crf": True,
+        "n_state": S,
+        "bucket_edges": [e1s, e2s],
+        "beam_size": int(beam_size),
+        "beam_cut_threshold": float(beam_cut_threshold),
+        "collapse_repeats": False,
+        "engine": engine,
+    }
+    constant = all(_constant_window(p[4] if len(p) > 4 else None) for p in pairs)
+
+    def pad(edges, chunk, bs):
+        frames = sum(int(pairs[i][0].shape[0]) + int(pairs[i][2].shape[0]) for i in chunk)
+        profiling.count("decode_many_crf_duplex.frames", frames)
+        profiling.count("decode_many_crf_duplex.batch_frames", len(chunk) * sum(edges))
+        return _pad_crf_duplex(device, pairs, chunk, edges)
+
+    rows = _stream(
+        "decode_many_crf_duplex", pairs, batch_size, checkpoint_path, meta,
+        "duplex" if constant else "duplex_moving",
+        key=lambda i: (edge_holding(pairs[i][0].shape[0], e1s),
+                       edge_holding(pairs[i][2].shape[0], e2s)),
+        decoder=lambda edges: BatchCrfDuplexDecoder(
+            alphabet, T1=edges[0], T2=edges[1], n_state=S, beam_size=beam_size,
+            beam_cut_threshold=beam_cut_threshold, engine=engine, device=device,
+        ),
+        pad=pad, noun="pairs",
         to_rows=lambda res: [(sq, [], er) for sq, er in res],
     )
     return [(sq, er) for sq, _, er in rows]

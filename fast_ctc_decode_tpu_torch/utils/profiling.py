@@ -11,8 +11,8 @@ stages nest.
 The pipeline (``parallel/pipeline.py``) names its stages by path (``beam``,
 ``crf``, ``duplex``, ``crf_duplex``):
 
-- ``decode_many``, ``decode_many_crf``, ``decode_many_duplex``: the whole
-  call, with ``<call>.bucket`` (reads grouped by length), ``<call>.pad``
+- ``decode_many``, ``decode_many_crf``, ``decode_many_duplex``,
+  ``decode_many_crf_duplex``: the whole call, with ``<call>.bucket`` (reads grouped by length), ``<call>.pad``
   and ``<call>.checkpoint`` inside it;
 - ``<path>.device``: a batch's device decode, and inside it
   ``<path>.upload`` (the copies to the card), ``<path>.launch`` (the kernel
@@ -36,6 +36,10 @@ the host; the zeros of padding are not counted, and a batch decoded in
 place adds only its stacked init states, or 0) and
 ``decode_many_crf.in_place_frames`` (the real frames of batches decoded in
 place, from the caller's tensor: counted only where that happens).
+``decode_many_crf_duplex`` counts ``decode_many_crf_duplex.frames`` (the
+real frames of both reads of the pairs it decodes) and
+``decode_many_crf_duplex.batch_frames`` (the frames of both reads in the
+batches it hands the decoder, bucket padding included), on every path.
 """
 
 from __future__ import annotations

@@ -304,6 +304,8 @@ def test_tree_bands_equal_a_chain_that_computes_its_base_per_cell(crf):
     is_rep = torch.zeros_like(rep) if crf else rep
     lab, gap, mx_all = port_dx._build_bands(c, l2, root_gap, lo, hi, wc, is_rep, crf)
     NEG = torch.tensor(float("-inf"))
+    # the CRF engine's logsumexp takes exp and log1p correctly rounded
+    ls_add = port_df.ls_add_cr if crf else port_df.ls_add
     for b in range(Bn):
         for k in range(K):
             node = int(c.node[b, k])
@@ -322,12 +324,12 @@ def test_tree_bands_equal_a_chain_that_computes_its_base_per_cell(crf):
                         col = min(max(idx, 0), W - 1)
                         par_lab = c.blab[b, n0, col] if ok else NEG
                         par_gap = c.bgap[b, n0, col] if ok else NEG
-                    base = par_gap if bool(is_rep[b, k, a]) else port_df.ls_add(par_lab, par_gap)
+                    base = par_gap if bool(is_rep[b, k, a]) else ls_add(par_lab, par_gap)
                     tt = min(t2, T2n - 1)
                     r = l2[b, tt, int(c.state[b, k])] if crf else l2[b, tt]
                     gap_n = last_tot + r[0]
-                    lab_n = r[1 + a] + port_df.ls_add(last_lab, base)
-                    tot = port_df.ls_add(lab_n, gap_n)
+                    lab_n = r[1 + a] + ls_add(last_lab, base)
+                    tot = ls_add(lab_n, gap_n)
                     assert torch.equal(bits(lab[b, k, a, i]), bits(lab_n)), (b, k, a, i)
                     assert torch.equal(bits(gap[b, k, a, i]), bits(gap_n)), (b, k, a, i)
                     if i < int(hi[b] - lo[b]) and bool(mx < tot):

@@ -250,15 +250,22 @@ def test_batched_envelope_prep_equals_jax(case):
 
 def _reference_batch(n1, n2, envs, lengths, thr, t1, t2, inits=None):
     """DuplexBatch fields as the JAX pipeline's ``_prep_envelope_batch`` and
-    its decoders' host code (logs, root bands) give them."""
+    its decoders' host code (logs, root bands) give them; except that the
+    port takes CRF logs correctly rounded (in float64, rounded once to
+    float32) where the JAX package takes numpy's float32 ``log``."""
     b = n1.shape[0]
     shared = envs is None or envs.ndim == 2
     envs = np.broadcast_to(full_env(t1, t2) if envs is None else envs, (b, t1, 2))
     lo, hi, eps = jax_pipeline._prep_envelope_batch(jax_df, envs, b, t1, t2, shared)
     with np.errstate(divide="ignore", invalid="ignore"):
-        l1 = np.log(np.asarray(n1, np.float32), dtype=np.float32)
-        l2 = np.log(np.asarray(n2, np.float32), dtype=np.float32)
-        lt = np.float32(np.log(np.float32(thr)))
+        if inits is None:
+            l1 = np.log(np.asarray(n1, np.float32), dtype=np.float32)
+            l2 = np.log(np.asarray(n2, np.float32), dtype=np.float32)
+            lt = np.float32(np.log(np.float32(thr)))
+        else:
+            l1 = np.log(np.asarray(n1, np.float32).astype(np.float64)).astype(np.float32)
+            l2 = np.log(np.asarray(n2, np.float32).astype(np.float64)).astype(np.float32)
+            lt = np.float32(np.log(np.float64(np.float32(thr))))
     wr_b = np.minimum(np.maximum(envs[:, 0, 1], 0), t2) + 1
     root_gap = np.full((b, int(wr_b.max())), -np.inf, np.float32)
     root_gap[:, 0] = 0.0

@@ -4,7 +4,8 @@ Under a running ``torch.profiler`` every stage is a ``record_function``
 range of its name, inside its parent's range; ``METRICS.stages`` holds the
 same names; the children of a stage take no more time than it; with no
 profiler recording, ``stage`` never enters ``record_function``; and the CRF
-stream's counters hold its frames and the bytes its pad stage writes.
+stream's counters hold its frames and the bytes its pad stage writes (the
+CRF duplex stream's counters are held in ``test_torch_crf_duplex_many.py``).
 """
 
 import numpy as np
@@ -13,7 +14,7 @@ import torch
 
 from duplex_helpers import diag_env, random_data
 from fast_ctc_decode_tpu_torch import (BatchCrfDuplexDecoder, decode_many, decode_many_crf,
-                                       decode_many_duplex)
+                                       decode_many_crf_duplex, decode_many_duplex)
 from fast_ctc_decode_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -53,6 +54,16 @@ def run_crf_duplex():
     dec.decode(n1[None], i1[None], n2[None], i2[None], envelopes=diag_env(T1, T2, 3))
 
 
+def run_crf_duplex_many():
+    # one batch of tensors (the device path) and one of host arrays
+    pairs = []
+    for i, (t1, t2) in enumerate(((12, 14), (10, 9), (14, 16))):
+        (n1, i1), (n2, i2) = crf_read(t1, 4, 90 + i), crf_read(t2, 4, 95 + i)
+        pair = (n1, i1, n2, i2, diag_env(t1, t2, 2 + i))
+        pairs.append(pair if i == 2 else tuple(map(torch.as_tensor, pair[:4])) + pair[4:])
+    decode_many_crf_duplex(pairs, ALPHA, batch_size=2, device="cpu")
+
+
 def device_tree(path, top=None):
     """Each stage of a path's batch decode, with its parent."""
     tree = {f"{path}.device": top, f"{path}.detok": top}
@@ -74,6 +85,7 @@ PATHS = {
     "duplex": (run_duplex, call_tree("decode_many_duplex", "duplex")),
     "crf": (run_crf, call_tree("decode_many_crf", "crf")),
     "crf_duplex": (run_crf_duplex, device_tree("crf_duplex")),
+    "crf_duplex_many": (run_crf_duplex_many, call_tree("decode_many_crf_duplex", "crf_duplex")),
 }
 
 
